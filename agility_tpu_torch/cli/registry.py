@@ -1,8 +1,8 @@
 """Task registry, env-config half (counterpart of agility_tpu/cli/registry.py).
 
-The JAX registry also returns the SSInfoGAIL algorithm config, which imports
-jax; the port has no trainer yet, and the policy widths are the network
-modules' defaults.
+The JAX registry also returns the algorithm configs, which import jax; the
+port has no trainer yet, and the policy widths are the network modules'
+defaults.
 """
 from __future__ import annotations
 
@@ -10,10 +10,12 @@ import dataclasses
 from typing import Callable, Dict
 
 from agility_tpu.envs import config as bbc_config
+from agility_tpu.envs import tsc_config
 
 _REGISTRY: Dict[str, Callable] = {
     "go2_locomotion": bbc_config.Go2LocomotionCfg,
     "go2_locomotion_smoke": lambda: bbc_config.smoke_cfg(64),
+    "go2_agility": tsc_config.Go2AgilityCfg,      # the TSC task ("go2" in the JAX registry)
 }
 
 

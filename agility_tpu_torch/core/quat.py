@@ -67,6 +67,10 @@ def euler_from_quat(q: torch.Tensor):
     return roll, pitch, yaw
 
 
+def wrap_to_pi(angle: torch.Tensor) -> torch.Tensor:
+    return torch.remainder(angle + torch.pi, 2 * torch.pi) - torch.pi
+
+
 def calc_heading(q: torch.Tensor) -> torch.Tensor:
     """Yaw of the rotated x-axis."""
     ref = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype, device=q.device)

@@ -4,8 +4,8 @@
 `read_msgpack` decodes the msgpack subset flax writes: maps, arrays, str,
 bin, nil/bool, ints, floats, and flax's ext types 1 (ndarray) and 3 (numpy
 scalar), whose payload is a msgpack (shape, dtype name, raw bytes) triple.
-`params_from_jax` carries the flax parameter trees across to the port's
-modules:
+`params_from_jax` (BBC) and `params_from_jax_tsc` (TSC teacher) carry the
+flax parameter trees across to the port's modules:
   * a flax Dense kernel is (in, out); nn.Linear.weight is (out, in);
   * a flax Conv kernel is (k, in, out) over (..., T, C) input; nn.Conv1d's
     weight is (out, in, k) over (B, C, T).
@@ -118,21 +118,51 @@ def _mlp(p, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _history_encoder(he, prefix: str) -> Dict[str, torch.Tensor]:
+    out = _dense(he["Dense_0"], f"{prefix}.proj")
+    out.update(_conv(he["Conv_0"], f"{prefix}.conv0"))
+    out.update(_conv(he["Conv_1"], f"{prefix}.conv1"))
+    out.update(_dense(he["Dense_1"], f"{prefix}.out"))
+    return out
+
+
 def params_from_jax(tree) -> Dict[str, Dict[str, torch.Tensor]]:
     """State dicts {"actor_critic": ..., "estimator": ...} for
     networks.ActorCritic / networks.Estimator from a flax checkpoint tree
     (`ac_params`, `est_params`)."""
     ac = tree["ac_params"]["params"]
-    he = ac["history_encoder"]
     sd = {"std": torch.as_tensor(np.asarray(ac["std"]))}
     sd.update(_mlp(ac["priv_encoder"], "priv_encoder"))
-    sd.update(_dense(he["Dense_0"], "history_encoder.proj"))
-    sd.update(_conv(he["Conv_0"], "history_encoder.conv0"))
-    sd.update(_conv(he["Conv_1"], "history_encoder.conv1"))
-    sd.update(_dense(he["Dense_1"], "history_encoder.out"))
+    sd.update(_history_encoder(ac["history_encoder"], "history_encoder"))
     sd.update(_mlp(ac["actor_trunk"], "actor_trunk"))
     sd.update(_dense(ac["actor_head"], "actor_head"))
     sd.update(_mlp(ac["critic_trunk"], "critic_trunk"))
     sd.update(_dense(ac["critic_head"], "critic_head"))
     est = _mlp(tree["est_params"]["params"]["MLP_0"], "mlp")
     return {"actor_critic": sd, "estimator": est}
+
+
+def params_from_jax_tsc(tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """State dicts {"actor_critic": ..., "estimator": ...} for
+    networks_tsc.ActorCriticTSC / networks.Estimator from a TSC teacher's
+    flax checkpoint tree (`ac_params`, `est_params`)."""
+    ac = tree["ac_params"]["params"]
+    sd = {"std": torch.as_tensor(np.asarray(ac["std"]))}
+    sd.update(_mlp(ac["priv_encoder"], "priv_encoder"))
+    sd.update(_history_encoder(ac["history_encoder"], "history_encoder"))
+    sd.update(_mlp(ac["scan_encoder"], "scan_encoder"))
+    sd.update(_mlp(ac["actor_trunk"], "actor_trunk"))
+    sd.update(_dense(ac["actor_d"], "actor_d"))
+    sd.update(_dense(ac["actor_c"], "actor_c"))
+    sd.update(_mlp(ac["critic_trunk"], "critic_trunk"))
+    sd.update(_dense(ac["critic_head"], "critic_head"))
+    est = _mlp(tree["est_params"]["params"]["MLP_0"], "mlp")
+    return {"actor_critic": sd, "estimator": est}
+
+
+def load_bbc_frozen(path: str) -> Dict[str, torch.Tensor]:
+    """The frozen BBC actor-critic's state dict from a BBC checkpoint file
+    (counterpart of agility_tpu/learn/runner_tsc.load_bbc_frozen; the TSC
+    path runs only its actor, so the estimator and discriminator are not
+    read)."""
+    return params_from_jax(read_msgpack(path))["actor_critic"]

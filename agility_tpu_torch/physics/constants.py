@@ -134,6 +134,12 @@ class SoAConsts:
         m = torch.zeros((self.nb, self.S), dtype=mc.dtype)
         m[self.sph_body, torch.arange(self.S)] = 1.0
         self.body_mat = m.to(mc.device)
+        # spheres on the base link (trunk + head), tested against ceiling
+        # surfaces (tunnel roof, tire top ring); they lead the sphere list
+        cs = np.nonzero(self.sph_link == 0)[0]
+        if not (cs == np.arange(len(cs))).all():
+            raise ValueError("the base-link spheres must lead the sphere list")
+        self.n_ceil = len(cs)
         # (S, nu) sphere-lever masks (ancestors of each sphere's link)
         self.lever_mask = torch.as_tensor(self.ancestors[self.sph_link],
                                           dtype=mc.dtype, device=mc.device)

@@ -41,6 +41,7 @@ class EnvParams(NamedTuple):
     kd_scale: torch.Tensor          # (N, nu)
     added_base_mass: torch.Tensor   # (N,)
     base_com_shift: torch.Tensor    # (N, 3)
+    hf_weights: torch.Tensor = None  # (N, L) movable-layer weights + seesaw tilt, or None
 
 
 class Control(NamedTuple):

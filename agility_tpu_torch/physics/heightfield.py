@@ -1,29 +1,43 @@
 """Heightfield terrain queries (counterpart of agility_tpu/physics/heightfield.py).
 
 The world is a regular height grid sampled bilinearly on the device.  The
-BBC terrain is one static surface, so the movable-layer, lever and ceiling
-surfaces of the TSC course worlds are not part of this port yet.
+TSC obstacle-course world adds optional surfaces: movable layer tags
+(`layer_id`, the bar beam and tire sill), the seesaw `lever` grid, and an
+overhead `ceiling` surface (tunnel roof, tire top ring) with its own layer
+tags.  Per-env `weights` (N, L) fold them in at sample time, in the JAX
+package's order: the lever times weights[:, -1], then the layer offsets
+from weights[:, :-1], where layer 0 is the static ground.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+NO_CEILING = 100.0   # sentinel ceiling height [m] for open-sky cells
 
 
 class HeightGrid(NamedTuple):
     height: torch.Tensor      # (H, W) meters
     hscale: float             # grid spacing [m]
     origin: tuple             # (x, y) world position of grid node (0, 0)
+    layer_id: Optional[torch.Tensor] = None       # (H, W) int8: 0 ground, l > 0 movable
+    lever: Optional[torch.Tensor] = None          # (H, W) f32 seesaw lever arm [m]
+    ceiling: Optional[torch.Tensor] = None        # (H, W) f32, NO_CEILING = open sky
+    ceiling_layer: Optional[torch.Tensor] = None  # (H, W) int8
 
 
 def from_numpy(height_m: np.ndarray, hscale: float, origin_xy=(0.0, 0.0),
-               device="cpu") -> HeightGrid:
+               device="cpu", layer_id=None, lever=None, ceiling=None,
+               ceiling_layer=None) -> HeightGrid:
     o = np.asarray(origin_xy, np.float32)   # f32-rounded, as the JAX grid stores it
+    t = lambda x, dt: None if x is None else torch.as_tensor(np.asarray(x, dt), device=device)
     return HeightGrid(
-        height=torch.as_tensor(np.asarray(height_m, np.float32), device=device),
-        hscale=float(hscale), origin=(float(o[0]), float(o[1])))
+        height=t(height_m, np.float32), hscale=float(hscale),
+        origin=(float(o[0]), float(o[1])), layer_id=t(layer_id, np.int8),
+        lever=t(lever, np.float32), ceiling=t(ceiling, np.float32),
+        ceiling_layer=t(ceiling_layer, np.int8))
 
 
 def _grid_coords(g: HeightGrid, x, y):
@@ -33,26 +47,76 @@ def _grid_coords(g: HeightGrid, x, y):
     return gx, gy
 
 
-def _corners(g: HeightGrid, x, y):
+def _col(weights, i, like):
+    """Per-env weight column i, shaped to broadcast against `like` (N, ...)."""
+    return weights[:, i].reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _layer_offset(tags, xi, yi, lw, like):
+    """w[tag] with w = [0, lw...] at integer nodes: the movable-layer offset."""
+    lid = tags[xi, yi]
+    off = torch.zeros_like(like)
+    for l in range(lw.shape[-1]):
+        off = torch.where(lid == l + 1, _col(lw, l, like), off)
+    return off
+
+
+def _node(g: HeightGrid, xi, yi, weights):
+    """Effective floor height at integer nodes: gather + seesaw tilt
+    (lever * weights[-1]) + movable-layer offset."""
+    h = g.height[xi, yi]
+    if weights is None:
+        return h
+    lw = weights
+    if g.lever is not None:
+        h = h + g.lever[xi, yi] * _col(weights, -1, h)
+        lw = weights[:, :-1]
+    if g.layer_id is not None and lw.shape[-1] > 0:
+        h = h + _layer_offset(g.layer_id, xi, yi, lw, h)
+    return h
+
+
+def _cnode(g: HeightGrid, xi, yi, weights):
+    """Effective ceiling height at integer nodes (NO_CEILING = open sky)."""
+    h = g.ceiling[xi, yi]
+    if weights is None:
+        return h
+    lw = weights[:, :-1] if g.lever is not None else weights
+    if g.ceiling_layer is not None and lw.shape[-1] > 0:
+        h = h + _layer_offset(g.ceiling_layer, xi, yi, lw, h)
+    return h
+
+
+def _bilinear(node, g: HeightGrid, x, y, weights):
     gx, gy = _grid_coords(g, x, y)
     x0 = torch.floor(gx).long()
     y0 = torch.floor(gy).long()
-    h = g.height
-    return (gx - x0, gy - y0, h[x0, y0], h[x0 + 1, y0], h[x0, y0 + 1], h[x0 + 1, y0 + 1])
+    fx, fy = gx - x0, gy - y0
+    return (node(g, x0, y0, weights) * (1 - fx) * (1 - fy)
+            + node(g, x0 + 1, y0, weights) * fx * (1 - fy)
+            + node(g, x0, y0 + 1, weights) * (1 - fx) * fy
+            + node(g, x0 + 1, y0 + 1, weights) * fx * fy)
 
 
-def sample_height(g: HeightGrid, x, y):
-    """Bilinear height at world (x, y); x/y broadcast to any shape."""
-    fx, fy, h00, h10, h01, h11 = _corners(g, x, y)
-    return (h00 * (1 - fx) * (1 - fy) + h10 * fx * (1 - fy)
-            + h01 * (1 - fx) * fy + h11 * fx * fy)
+def sample_height(g: HeightGrid, x, y, weights=None):
+    """Bilinear height at world (x, y); x/y broadcast to any shape with a
+    leading env axis when `weights` (N, L) is given."""
+    return _bilinear(_node, g, x, y, weights)
 
 
-def sample_height_min3(g: HeightGrid, x, y):
+def sample_ceiling(g: HeightGrid, x, y, weights=None):
+    """Bilinear ceiling height at world (x, y); requires g.ceiling."""
+    return _bilinear(_cnode, g, x, y, weights)
+
+
+def sample_height_min3(g: HeightGrid, x, y, weights=None):
     """Conservative floor-node height: min of the cell node and its +x/+y
     neighbours (the reference's scandot lookup)."""
-    _, _, h00, h10, h01, _ = _corners(g, x, y)
-    return torch.minimum(torch.minimum(h00, h10), h01)
+    gx, gy = _grid_coords(g, x, y)
+    x0 = torch.floor(gx).long()
+    y0 = torch.floor(gy).long()
+    hm = torch.minimum(_node(g, x0, y0, weights), _node(g, x0 + 1, y0, weights))
+    return torch.minimum(hm, _node(g, x0, y0 + 1, weights))
 
 
 def sample_normal(g: HeightGrid, x, y, eps: float = None):

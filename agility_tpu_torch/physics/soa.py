@@ -14,7 +14,10 @@ Same math as the JAX module:
   - Contact: projected block-Jacobi.  Unlike the JAX module's matrix-free
     sweep, the Delassus matrix G = J M^-1 J^T is formed once per substep
     with a batched product and the sweeps run in kernel K1
-    (kernels/contact_lcp.py) — the same fixed point.
+    (kernels/contact_lcp.py) — the same fixed point.  On worlds with a
+    ceiling the base-link spheres add contact rows against it.
+  - Terrain: the per-env window is gathered once per control step by kernel
+    K2 (kernels/terrain_window.py), with the movable layers folded in.
 
 Run op by op in eager torch this is many small kernel launches per substep;
 that is the measured starting point for later fusion (PERF.md).
@@ -26,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from agility_tpu_torch.kernels.contact_lcp import contact_lcp
-from agility_tpu_torch.physics import patch as pt
+from agility_tpu_torch.kernels.terrain_window import terrain_window
 from agility_tpu_torch.physics.constants import ModelConsts, SoAConsts, consts_of
 
 # ---------------------------------------------------------------------------
@@ -571,6 +574,14 @@ def patch_sample_hn(patch_vals_T, patch_x0, patch_y0, origin, hscale, x, y):
     return h, (-dhdx * inv, -dhdy * inv, inv)
 
 
+def patch_sample_ceiling(ceil_vals_T, patch_x0, patch_y0, origin, hscale, x, y):
+    """Ceiling height + DOWNWARD surface normal at (x, y): the outward
+    normal of a solid that lies above z = c(x, y), the negation of the
+    floor-style normal of the same surface."""
+    h, n = patch_sample_hn(ceil_vals_T, patch_x0, patch_y0, origin, hscale, x, y)
+    return h, (-n[0], -n[1], -n[2])
+
+
 # ---------------------------------------------------------------------------
 # substep + control step
 # ---------------------------------------------------------------------------
@@ -583,10 +594,13 @@ class SoAState(NamedTuple):
     u: torch.Tensor     # (18, N)
 
 
-def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler):
+def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
+                ceil_sampler=None):
     """A substep up to the contact solve: PD torques, the factored mass
-    matrix, the unconstrained velocity and the contact geometry.  Returns a
-    dict with f, u_free, phi, n, r, lever, tau_j, tau_org."""
+    matrix, the unconstrained velocity and the contact geometry.  With
+    `ceil_sampler` the base-link spheres (the first c.n_ceil) also get
+    contact rows against the overhead surface, with downward normals.
+    Returns a dict with f, u_free, phi, n, r, lever, tau_j, tau_org."""
     c = consts_of(mc)
     bp = tuple(sd.bp.unbind(0))
     ls = fk_vel(c, bp, tuple(sd.bq.unbind(0)), sd.q, sd.u)
@@ -604,6 +618,15 @@ def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler
     h, n = sampler(cen[0], cen[1])
     phi = (cen[2] - h) * n[2] - c.sph_radius
     r = tuple(cen[k] - bp[k][None] for k in range(3))
+    if ceil_sampler is not None:
+        k = c.n_ceil
+        ch, cn = ceil_sampler(cen[0][:k], cen[1][:k])
+        # gap below an overhead surface: positive while clear of the roof
+        phi_c = (ch - cen[2][:k]) * (-cn[2]) - c.sph_radius[:k]
+        phi = torch.cat([phi, phi_c], dim=0)
+        n = tuple(torch.cat([n[i], cn[i]], dim=0) for i in range(3))
+        r = tuple(torch.cat([r[i], r[i][:k]], dim=0) for i in range(3))
+        lever = torch.cat([lever, lever[:, :, :k]], dim=2)
     return dict(f=f, u_free=u_free, phi=phi, n=n, r=r, lever=lever, tau_j=tau_j,
                 tau_org=tau_org)
 
@@ -614,15 +637,18 @@ def contact_kwargs(cfg):
                 max_depen_vel=cfg.max_depenetration_vel, restitution=cfg.restitution)
 
 
-def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler, lam0=None):
+def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
+            ceil_sampler=None, lam0=None):
     """One physics substep in env-minor layout.
 
     target/kp/kd: (12, N); prm: dict of env-minor randomization tensors
     (kp_scale/kd_scale (12, N), friction (N,), added_mass (N,), com_shift
-    Vec3 of (N,)); sampler(x, y) -> (h (S, N), n Vec3 of (S, N)).
-    Returns (SoAState, (tau, tau_org) (12, N), force (3, S, N), lam)."""
+    Vec3 of (N,)); sampler(x, y) -> (h (S, N), n Vec3 of (S, N));
+    ceil_sampler likewise for the ceiling, or None.
+    Returns (SoAState, (tau, tau_org) (12, N), force (3, S', N), lam), with
+    S' = S plus the ceiling rows."""
     c = consts_of(mc)
-    p = pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler)
+    p = pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
     f, tau_j, tau_org = p["f"], p["tau_j"], p["tau_org"]
     u_new, force, lam = jacobi_solve(
         p["phi"], p["n"], p["r"], p["lever"], f, p["u_free"], prm["friction"], cfg.dt,
@@ -651,19 +677,31 @@ def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler, la
 
 def batch_inputs(cfg, grid, s, control, params):
     """Env-major EnvState/Control/EnvParams -> the env-minor substep inputs:
-    (SoAState, (target, kp, kd, prm, sampler), terrain_patch).  The terrain
-    patch is gathered once here and sampled by every substep."""
+    (SoAState, (target, kp, kd, prm, sampler, ceil_sampler), terrain_patch).
+    The terrain window is gathered once here, through K2, with the env's
+    `params.hf_weights` folded in, and sampled by every substep;
+    ceil_sampler is None where the grid has no ceiling."""
     sd = SoAState(bp=s.base_pos.T, bq=s.base_quat.T, q=s.dof_pos.T, u=s.u.T)
     prm = dict(kp_scale=params.kp_scale.T, kd_scale=params.kd_scale.T,
                friction=params.friction, added_mass=params.added_base_mass,
                com_shift=tuple(params.base_com_shift.unbind(1)))
-    patch = pt.extract_batch(grid, s.base_pos[:, :2], cfg.patch_size)
+    patch = terrain_window(grid, s.base_pos[:, :2].contiguous(), cfg.patch_size,
+                           params.hf_weights)
     vals_T = patch.values.permute(1, 2, 0)                  # (P, P, N)
 
     def sampler(x, y):
         return patch_sample_hn(vals_T, patch.x0, patch.y0, grid.origin, grid.hscale, x, y)
 
-    return sd, (control.target.T, control.kp.T, control.kd.T, prm, sampler), patch
+    ceil_sampler = None
+    if patch.ceil is not None:
+        ceil_T = patch.ceil.permute(1, 2, 0)
+
+        def ceil_sampler(x, y):
+            return patch_sample_ceiling(ceil_T, patch.x0, patch.y0, grid.origin,
+                                        grid.hscale, x, y)
+
+    return sd, (control.target.T, control.kp.T, control.kd.T, prm, sampler,
+                ceil_sampler), patch
 
 
 def control_step_batched(mc: ModelConsts, cfg, grid, s, control, params):
@@ -673,16 +711,18 @@ def control_step_batched(mc: ModelConsts, cfg, grid, s, control, params):
     from agility_tpu_torch.physics.engine import EnvState
 
     c = consts_of(mc)
-    sd, (target, kp, kd, prm, sampler), terrain_patch = batch_inputs(
-        cfg, grid, s, control, params)
+    sd, args, terrain_patch = batch_inputs(cfg, grid, s, control, params)
+    body_mat = c.body_mat
+    if args[-1] is not None:
+        # ceiling contact rows accumulate onto the same base-link bodies
+        body_mat = torch.cat([body_mat, body_mat[:, :c.n_ceil]], dim=1)
     lam = None
     bf_all = []
     for _ in range(cfg.decimation):
-        sd, taus, force, lam_new = substep(mc, cfg, sd, target, kp, kd, prm, sampler,
-                                           lam0=lam)
+        sd, taus, force, lam_new = substep(mc, cfg, sd, *args, lam0=lam)
         if cfg.warm_start:
             lam = lam_new
-        bf_all.append(torch.einsum("bs,asn->ban", c.body_mat, force))   # (B, 3, N)
+        bf_all.append(torch.einsum("bs,asn->ban", body_mat, force))     # (B, 3, N)
     body_forces = bf_all[-1].permute(2, 0, 1)
     max_body_forces = torch.stack(bf_all).abs().amax(dim=0).permute(2, 0, 1)
     state = EnvState(base_pos=sd.bp.T, base_quat=sd.bq.T, dof_pos=sd.q.T, u=sd.u.T)

@@ -1,23 +1,48 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels from the
 repository's sources, checks each against its plain-torch version at the main
-path's shapes, then drives the BBC policy rollout (the port's serving path,
-agility_tpu_torch.cli.play_bbc) at full width and checks what comes out.
+paths' shapes, then drives the port's two serving paths at full width — the
+BBC policy rollout (agility_tpu_torch.cli.play_bbc) and the TSC obstacle-
+course evaluation (agility_tpu_torch.cli.play_tsc) — and checks what comes out.
 
     python3 chip_smoke.py            # needs one CUDA card; exits nonzero without one
 
 Phases (any failure exits nonzero and prints no result line):
-  1. build   — nvcc builds csrc/contact_lcp.cu for sm_90a (timed).
+  1. build   — nvcc builds csrc/{contact_lcp,terrain_window,scandots}.cu for
+               sm_90a, one process per source, all at once (timed).
   2. K1      — the contact LCP kernel against contact_lcp_reference on one card,
-               N = 4096 envs, S = 24 contacts, inputs built by the port's own SoA
-               code from a real batch of states: 5 sweeps warm-started from a
-               nonzero lam0, and 10 sweeps cold.  Tolerance: max |kernel - plain|
-               <= 1e-4 x max |plain| (float32, sums in another order).
-  3. parity  — one control step of a 64-env batch on the card against the same
-               step on the CPU (plain version), from one state.
-  4. slice   — play_bbc at 4096 envs on the rough-terrain Go2LocomotionCfg with
-               logs/bbc_r5/bbc_15k.msgpack for 250 control steps; the K1 launch
-               count must equal the substeps run, every state finite, and the
+               inputs built by the port's own SoA code from a real batch of
+               states, at both paths' shapes: the BBC's (N = 4096, S = 24) and
+               the TSC's (N = 6144 on 64 courses, S = 28, 64 envs pressed into
+               the tunnel roof so that ceiling rows are active).  5 sweeps
+               warm-started from a nonzero lam0, and 10 sweeps cold.  Tolerance:
+               max |kernel - plain| <= 1e-4 x max |plain| (float32, sums in
+               another order).
+  3. K2      — the terrain window against patch.extract_batch, exactly equal
+               (floor, ceiling, origins), at both paths' shapes: the default
+               64-course world (1320 x 1800, five surfaces), N = 6144 windows of
+               32 cells centred on goal waypoints, weights over the bar, tire and
+               tilt ranges, with the counts of layer, lever and ceiling cells
+               under the windows > 0; and the BBC's rough grid (one surface, no
+               weights), N = 4096 windows at the spawn points and, for every
+               other env, anywhere on or off the map, so that origins clamp at
+               the edges.
+  4. K3      — the scandots against patch.measure_scandots_batch on that world,
+               N = 6144 scans of 132 points, window 34: exactly equal.
+  5. parity  — one BBC control step of a 64-env batch on the card against the
+               same step on the CPU (plain versions), from one state.
+  6. TSC parity — one TSC env step of 64 envs (8 courses) on the card against the
+               CPU, from one state with 8 envs pressed against the tunnel roof
+               (active ceiling contacts, printed); envs that the step resets are
+               compared on their pre-reset (terminal) features, within 1e-3.
+  7. BBC slice — play_bbc at 4096 envs on the rough-terrain Go2LocomotionCfg with
+               logs/bbc_r5/bbc_15k.msgpack for 250 control steps; K1 launches =
+               substeps run, K2 launches = control steps + 1, every state finite,
                median base height over the terrain in [0.15, 0.45] m.
+  8. TSC slice — play_tsc at 6144 envs on 64 courses with the TSC teacher
+               logs/agility/r5/model_12000.msgpack and the frozen BBC
+               logs/bbc_r5/bbc_final.msgpack for 200 control steps; K1 launches =
+               4 x (steps + 1), K2 = K3 = steps + 1, every state finite, median
+               base height over the folded floor in [0.15, 0.45] m.
 The line before the last is the kernels' JSON record; the last line is the
 device record.
 """
@@ -28,15 +53,22 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "logs", "bbc_r5", "bbc_15k.msgpack")
+TSC_CHECKPOINT = os.path.join(ROOT, "logs", "agility", "r5", "model_12000.msgpack")
+TSC_BBC = os.path.join(ROOT, "logs", "bbc_r5", "bbc_final.msgpack")
+KERNELS = ("contact_lcp", "terrain_window", "scandots")   # csrc/<name>.cu
 K1_RTOL = 1e-4
-NUM_ENVS = 4096     # the main path's width
-STEPS = 250         # control steps of the slice phase
+NUM_ENVS = 4096     # the BBC path's width
+STEPS = 250         # control steps of the BBC slice phase
+TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
+TSC_STEPS = 200     # control steps of the TSC slice phase
+SOA_TOL = dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2)
 
 
 def cuda_ms(fn, reps=30, warmup=5):
@@ -54,62 +86,229 @@ def cuda_ms(fn, reps=30, warmup=5):
     return float(np.median(times))
 
 
-def k1_inputs(num_envs, lam0_warm):
-    """K1's inputs at the main path's shapes, from the port's SoA code on a
-    real batch: the play env's initial states, one substep in (so lam0 is the
-    previous substep's impulses when `lam0_warm`)."""
+def bbc_case(num_envs=NUM_ENVS, device="cuda"):
+    """The BBC play env at the BBC path's width, its initial env states and
+    its EnvParams (no heightfield weights)."""
     from agility_tpu_torch.cli import registry
     from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
-    from agility_tpu_torch.physics import engine as eng
-    from agility_tpu_torch.physics import soa
 
     cfg = registry.apply_overrides(registry.get("go2_locomotion")(),
                                    **{"env.num_envs": num_envs,
                                       "env.mocap_category": ("trot",)})
-    env = Go2LocomotionEnv(cfg, "cuda", seed=0)
-    s = env.init_state().sim
-    ctl = eng.Control(target=env.mc.default_dof_pos.expand(num_envs, 12),
+    env = Go2LocomotionEnv(cfg, device, seed=0)
+    return env, env.init_state().sim, env.params
+
+
+def tsc_env(num_envs, courses, device="cuda"):
+    """The TSC play env and hierarchical policy, built as play_tsc builds them."""
+    from agility_tpu_torch.cli import play_tsc
+
+    args = play_tsc.get_args(["--device", device, "--num_envs", str(num_envs), "--courses",
+                              str(courses), "--checkpoint", TSC_CHECKPOINT,
+                              "--bbc_path", TSC_BBC])
+    env, policy, _ = play_tsc.build(args)
+    return env, policy
+
+
+def press_into_roof(env, s, n):
+    """State `s` with its first `n` envs at the middle goal of their course's
+    tunnel, trunk pressed into the roof: the roof is 0.8 m over the tunnel's
+    centre line, so a base at 0.78 m pushes the base-link spheres into it."""
+    from agility_tpu_torch.terrain import obstacle as obst
+
+    tunnel = obst.OBST_TYPES.index("tunnel")
+    e = torch.arange(n, device=env.device)
+    station = torch.argmax((env.obst_types[e] == tunnel).long(), dim=1)
+    gidx = station * env.num_goals + 2
+    pos = s.sim.base_pos.clone()
+    pos[e, :2] = env.env_goals[e, gidx, :2]
+    pos[e, 2] = 0.78
+    s = s._replace(sim=s.sim._replace(base_pos=pos),
+                   cur_goal_idx=s.cur_goal_idx.index_put((e,), gidx))
+    return s._replace(cur_goals=env._gather_goals(s, s.cur_goal_idx),
+                      next_goals=env._gather_goals(s, s.cur_goal_idx + 1))
+
+
+def tsc_case(num_envs=TSC_ENVS, courses=64, under_roof=64, device="cuda"):
+    """The TSC play env at the TSC path's width, its initial env states with
+    `under_roof` envs pressed into the tunnel roof, and its EnvParams with
+    the states' heightfield weights."""
+    env, _ = tsc_env(num_envs, courses, device)
+    s = press_into_roof(env, env.init_state(), under_roof)
+    return env, s.sim, env.base_params._replace(hf_weights=env._weights(s))
+
+
+def k1_inputs(env, s, params, lam0_warm):
+    """K1's inputs from the port's SoA code on env states `s` (a batch of
+    EnvState) under `params`, one substep in (so lam0 is the previous
+    substep's impulses when `lam0_warm`)."""
+    from agility_tpu_torch.physics import engine as eng
+    from agility_tpu_torch.physics import soa
+
+    ctl = eng.Control(target=env.mc.default_dof_pos.expand(env.num_envs, 12),
                       kp=env.kp, kd=env.kd)
     ecfg = env.engine_cfg
-    sd, (target, kp, kd, prm, sampler), _ = soa.batch_inputs(ecfg, env.grid, s, ctl, env.params)
-    sd, _, _, lam = soa.substep(env.mc, ecfg, sd, target, kp, kd, prm, sampler)
-    p = soa.pre_contact(env.mc, ecfg, sd, target, kp, kd, prm, sampler)
+    sd, args, _ = soa.batch_inputs(ecfg, env.grid, s, ctl, params)
+    sd, _, _, lam = soa.substep(env.mc, ecfg, sd, *args)
+    p = soa.pre_contact(env.mc, ecfg, sd, *args)
     return soa.contact_problem(p["phi"], p["n"], p["r"], p["lever"], p["f"], p["u_free"],
-                               prm["friction"], ecfg.dt, lam0=lam if lam0_warm else None,
+                               args[3]["friction"], ecfg.dt, lam0=lam if lam0_warm else None,
                                **soa.contact_kwargs(ecfg))
 
 
-def phase_k1(num_envs):
+def phase_k1(cases):
+    """K1 against its plain version on each (path, env, states, params) case;
+    the ceiling rows (past the env's S sphere rows) must be active where the
+    grid has a ceiling."""
     from agility_tpu_torch.kernels import contact_lcp as k1
+    from agility_tpu_torch.physics import soa
 
     rows = {}
-    for label, warm, iters in (("warm", True, 5), ("cold", False, 10)):
-        args = k1_inputs(num_envs, warm)
-        kw = dict(iters=iters, relax=0.6)
-        out = k1.contact_lcp(*args, **kw)
-        ref = k1.contact_lcp_reference(*args, **kw)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        rel = err / max(scale, 1e-30)
-        n_active = int(args[4].sum())
-        lam0_max = float(args[7].abs().max())
-        ms = cuda_ms(lambda: k1.contact_lcp(*args, **kw))
-        plain_ms = cuda_ms(lambda: k1.contact_lcp_reference(*args, **kw))
-        print(f"K1 {label}: N={args[0].shape[0]} S={args[4].shape[1]} iters={iters} "
-              f"active contacts {n_active} max|lam0| {lam0_max:.4g} max|lam| {scale:.4g} "
-              f"max abs err {err:.3e} rel {rel:.3e} (tol {K1_RTOL:g}); "
-              f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms", flush=True)
-        if not np.isfinite(err) or rel > K1_RTOL:
-            raise SystemExit(f"K1 {label}: kernel disagrees with the plain version")
-        if n_active == 0 or (warm and lam0_max == 0.0):
-            raise SystemExit(f"K1 {label}: inputs exercise no contact")
-        rows[label] = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms)
+    for path, env, s, params in cases:
+        S = soa.consts_of(env.mc).S
+        for mode, warm, iters in (("warm", True, 5), ("cold", False, 10)):
+            label = f"{path} {mode}"
+            args = k1_inputs(env, s, params, warm)
+            kw = dict(iters=iters, relax=0.6)
+            out = k1.contact_lcp(*args, **kw)
+            ref = k1.contact_lcp_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            scale = float(ref.abs().max())
+            rel = err / max(scale, 1e-30)
+            n_active = int(args[4].sum())
+            n_ceil = int(args[4][:, S:].sum())
+            lam0_max = float(args[7].abs().max())
+            ms = cuda_ms(lambda: k1.contact_lcp(*args, **kw))
+            plain_ms = cuda_ms(lambda: k1.contact_lcp_reference(*args, **kw))
+            print(f"K1 {label}: N={args[0].shape[0]} S={args[4].shape[1]} iters={iters} "
+                  f"active contacts {n_active} (ceiling rows {n_ceil}) max|lam0| "
+                  f"{lam0_max:.4g} max|lam| {scale:.4g} max abs err {err:.3e} rel {rel:.3e} "
+                  f"(tol {K1_RTOL:g}); kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms",
+                  flush=True)
+            if not np.isfinite(err) or rel > K1_RTOL:
+                raise SystemExit(f"K1 {label}: kernel disagrees with the plain version")
+            if n_active == 0 or (warm and lam0_max == 0.0):
+                raise SystemExit(f"K1 {label}: inputs exercise no contact")
+            if env.grid.ceiling is not None and n_ceil == 0:
+                raise SystemExit(f"K1 {label}: no ceiling row is active")
+            rows[label] = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms)
     return rows
 
 
+def course_case(n, seed=0):
+    """The default 64-course world on the card (the TSC slice's world: play
+    seed 0), n centres on its goal waypoints (which lie on the obstacles)
+    jittered by up to 0.3 m, per-env weights over the bar, tire and tilt
+    ranges, and each env's 132 scan points at a random heading."""
+    from agility_tpu_torch.physics import heightfield as hf
+    from agility_tpu_torch.terrain import obstacle as obst
+
+    cfg = obst.ObstacleCfg()
+    world = obst.generate(cfg, seed=seed)
+    grid = hf.from_numpy(world.height, world.hscale, world.origin, "cuda",
+                         layer_id=world.layer_id, lever=world.lever, ceiling=world.ceil,
+                         ceiling_layer=world.ceil_layer)
+    rng = np.random.default_rng(seed)
+    goals = world.goals[:, :, :2].reshape(-1, 2)
+    c = goals[np.arange(n) % len(goals)] + rng.uniform(-0.3, 0.3, (n, 2))
+    w = np.stack([rng.uniform(0.05, 0.3, n), rng.uniform(0.4, 0.65, n),
+                  rng.uniform(-obst.SEESAW_THETA_MAX, obst.SEESAW_THETA_MAX, n)], -1)
+    gx, gy = np.meshgrid(cfg.measured_points_x, cfg.measured_points_y, indexing="ij")
+    local = np.stack([gx.ravel(), gy.ravel()], -1)                       # (132, 2)
+    yaw = rng.uniform(-np.pi, np.pi, n)
+    rot = np.stack([np.stack([np.cos(yaw), -np.sin(yaw)], -1),
+                    np.stack([np.sin(yaw), np.cos(yaw)], -1)], -2)       # (n, 2, 2)
+    pts = c[:, None, :] + np.einsum("nij,kj->nki", rot, local)
+    scan_c = c + np.einsum("nij,j->ni", rot, local.mean(0))
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device="cuda").contiguous()
+    return grid, f32(c), f32(w), f32(scan_c), f32(pts[..., 0]), f32(pts[..., 1])
+
+
+def _k2_check(label, grid, c, size, w):
+    """K2 against its plain version on one input: exactly equal floor,
+    ceiling and origins.  Returns the plain version's patch and the row."""
+    from agility_tpu_torch.kernels import terrain_window as k2
+
+    got = k2.terrain_window(grid, c, size, w)
+    ref = k2.terrain_window_reference(grid, c, size, w)
+    torch.cuda.synchronize()
+    fields = ("values", "x0", "y0") + (("ceil",) if ref.ceil is not None else ())
+    err = max(float((getattr(got, f) - getattr(ref, f)).abs().max()) for f in fields)
+    same = all(torch.equal(getattr(got, f), getattr(ref, f)) for f in fields)
+    ms = cuda_ms(lambda: k2.terrain_window(grid, c, size, w))
+    plain_ms = cuda_ms(lambda: k2.terrain_window_reference(grid, c, size, w))
+    print(f"K2 {label}: N={c.shape[0]} windows of {size} on the {tuple(grid.height.shape)} "
+          f"grid, weights {None if w is None else tuple(w.shape)}; max abs err {err:.3e}, "
+          f"exactly equal {same}; kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms",
+          flush=True)
+    if not same:
+        raise SystemExit(f"K2 {label}: kernel differs from the plain version")
+    return ref, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_k2(bbc, n=TSC_ENVS):
+    """K2 at the TSC path's shape (course world, weights, ceiling) and at the
+    BBC path's (`bbc`: its env and initial states; one surface, no weights)."""
+    from agility_tpu_torch.physics import heightfield as hf
+
+    grid, c, w, _, _, _ = course_case(n)
+    rows = {}
+    ref, rows["tsc"] = _k2_check("tsc", grid, c, 32, w)
+    ar = torch.arange(32, device="cuda")
+    ix, iy = (ref.x0[:, None] + ar)[:, :, None], (ref.y0[:, None] + ar)[:, None, :]
+    counts = dict(layer=int((grid.layer_id[ix, iy] != 0).sum()),
+                  lever=int((grid.lever[ix, iy] != 0).sum()),
+                  ceiling=int((grid.ceiling[ix, iy] < hf.NO_CEILING).sum()))
+    print(f"K2 tsc: cells under the windows {counts}", flush=True)
+    if min(counts.values()) == 0:
+        raise SystemExit("K2 tsc: the windows cover no layer, lever or ceiling cell")
+
+    env, s, params = bbc
+    grid, size = env.grid, env.engine_cfg.patch_size
+    H, W = grid.height.shape
+    c = s.base_pos[:, :2].clone()
+    # every other env anywhere on the map or up to 1 m off it
+    lo = torch.tensor(grid.origin, device=c.device) - 1.0
+    span = torch.tensor([H, W], device=c.device) * grid.hscale + 2.0
+    g = torch.Generator(device=c.device).manual_seed(0)
+    c[1::2] = lo + span * torch.rand(c[1::2].shape, generator=g, device=c.device)
+    ref, rows["bbc"] = _k2_check("bbc", grid, c.contiguous(), size, params.hf_weights)
+    clamped = int(((ref.x0 == 0) | (ref.x0 == H - size) | (ref.y0 == 0)
+                   | (ref.y0 == W - size)).sum())
+    print(f"K2 bbc: {clamped} windows clamped at the map's edge", flush=True)
+    if clamped == 0:
+        raise SystemExit("K2 bbc: no window clamps at the map's edge")
+    return rows
+
+
+def phase_k3(n=TSC_ENVS):
+    from agility_tpu_torch.kernels import scandots as k3
+    from agility_tpu_torch.physics import patch as pt
+
+    grid, _, w, sc, px, py = course_case(n)
+    got = k3.scandots(grid, sc, 34, w, px, py)
+    ref = k3.scandots_reference(grid, sc, 34, w, px, py)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    same = torch.equal(got, ref)
+    r, col = pt.scandot_nodes(grid, sc, 34, px, py)
+    counts = dict(layer=int((grid.layer_id[r, col] != 0).sum()),
+                  lever=int((grid.lever[r, col] != 0).sum()))
+    ms = cuda_ms(lambda: k3.scandots(grid, sc, 34, w, px, py))
+    plain_ms = cuda_ms(lambda: k3.scandots_reference(grid, sc, 34, w, px, py))
+    print(f"K3: N={n} scans x {px.shape[1]} points, window 34, floor nodes on {counts}; "
+          f"max abs err {err:.3e}, exactly equal {same}; "
+          f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms", flush=True)
+    if not same:
+        raise SystemExit("K3: kernel differs from the plain version")
+    if min(counts.values()) == 0:
+        raise SystemExit("K3: the scans cross no layer or lever cell")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 def phase_parity(num_envs=64):
-    """One control step on the card (K1) against the CPU (plain version)."""
+    """One BBC control step on the card (kernels) against the CPU (plain versions)."""
     from agility_tpu_torch.cli import registry
     from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
     from agility_tpu_torch.learn.policy import build_policy
@@ -121,30 +320,95 @@ def phase_parity(num_envs=64):
     pol = build_policy(cfg, device="cuda")
     sg = gpu.init_state()
     acts = pol(sg.obs_buf)
-    sc = sg._replace(sim=type(sg.sim)(*(t.cpu() for t in sg.sim)),
-                     **{k: getattr(sg, k).cpu() for k in sg._fields
-                        if k not in ("sim", "global_counter")})
     og, _ = gpu.step(sg, acts)
-    oc, _ = cpu.step(sc, acts.cpu())
-    tol = dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2)
-    errs = {k: float((getattr(og.sim, k).cpu() - getattr(oc.sim, k)).abs().max()) for k in tol}
-    print(f"parity {num_envs} envs, one control step, card vs CPU: "
-          + ", ".join(f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()), flush=True)
-    if not all(np.isfinite(v) and v <= tol[k] for k, v in errs.items()):
+    oc, _ = cpu.step(_to(sg, "cpu"), acts.cpu())
+    errs = {k: float((getattr(og.sim, k).cpu() - getattr(oc.sim, k)).abs().max()) for k in SOA_TOL}
+    print(f"parity {num_envs} envs, one BBC control step, card vs CPU: "
+          + ", ".join(f"{k} {v:.3e} (tol {SOA_TOL[k]:g})" for k, v in errs.items()), flush=True)
+    if not all(np.isfinite(v) and v <= SOA_TOL[k] for k, v in errs.items()):
         raise SystemExit("parity: the card's control step disagrees with the CPU's")
+
+
+def _to(state, dev):
+    """A copy of an env state (LocoState or AgilityState) on `dev`."""
+    move = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x
+    return state._replace(sim=type(state.sim)(*(move(t) for t in state.sim)),
+                          **{k: move(getattr(state, k)) for k in state._fields if k != "sim"})
+
+
+def phase_tsc_parity(num_envs=64, courses=8, under_roof=8):
+    """One TSC env step on the card (K1, K2, K3) against the CPU (plain
+    versions), from one state with `under_roof` envs in their course's tunnel,
+    trunk pressed into the roof."""
+    gpu, policy = tsc_env(num_envs, courses)
+    cpu = type(gpu)(gpu.cfg, "cpu", seed=0)
+    s = press_into_roof(gpu, gpu.init_state(), under_roof)
+    s, nc = gpu.set_commands(s, policy.act(s.obs_buf))
+    acts = policy.bbc_act(s.obs_bbc_buf, nc)
+    sc = _to(s, "cpu")
+    og, outg = gpu.step(s, acts)
+    oc, outc = cpu.step(sc, acts.cpu())
+    keep = ~(outc.reset | outg.reset.cpu())
+    errs = {k: float((getattr(og.sim, k).cpu() - getattr(oc.sim, k))[keep].abs().max())
+            for k in SOA_TOL}
+    errs["terminal_disc_obs"] = float((outg.terminal_disc_obs.cpu()
+                                       - outc.terminal_disc_obs).abs().max())
+    # the reset envs' pre-reset features: measured 1.6e-4 on an H100, gated
+    # at about 6x that
+    tol = dict(SOA_TOL, terminal_disc_obs=1e-3)
+    n_ceil = _active_ceiling_contacts(cpu, sc)
+    print(f"TSC parity {num_envs} envs x {courses} courses, one env step, card vs CPU: "
+          f"{n_ceil} active ceiling contacts, {int(outc.reset.sum())} envs reset (CPU) / "
+          f"{int(outg.reset.sum())} (card); "
+          + ", ".join(f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()), flush=True)
+    if not torch.equal(outg.reset.cpu(), outc.reset):
+        raise SystemExit("TSC parity: the card and the CPU reset different envs")
+    if not all(np.isfinite(v) and v <= tol[k] for k, v in errs.items()):
+        raise SystemExit("TSC parity: the card's env step disagrees with the CPU's")
+    if n_ceil == 0:
+        raise SystemExit("TSC parity: no ceiling contact was active")
+
+
+def _active_ceiling_contacts(env, s):
+    """Ceiling contact rows with phi < 0 in state `s` (the contact geometry
+    does not depend on the control), on the env's device."""
+    from agility_tpu_torch.physics import engine as eng
+    from agility_tpu_torch.physics import soa
+
+    ctl = eng.Control(env.mc.default_dof_pos.expand(env.num_envs, 12), env.kp, env.kd)
+    params = env.base_params._replace(hf_weights=env._weights(s))
+    sd, args, _ = soa.batch_inputs(env.engine_cfg, env.grid, s.sim, ctl, params)
+    p = soa.pre_contact(env.mc, env.engine_cfg, sd, *args)
+    return int((p["phi"][soa.consts_of(env.mc).S:] < 0).sum())
+
+
+def _counts_zero():
+    from agility_tpu_torch.kernels import contact_lcp as k1
+    from agility_tpu_torch.kernels import scandots as k3
+    from agility_tpu_torch.kernels import terrain_window as k2
+
+    k1.contact_lcp.launches = k2.terrain_window.launches = k3.scandots.launches = 0
+
+
+def _counts():
+    from agility_tpu_torch.kernels import contact_lcp as k1
+    from agility_tpu_torch.kernels import scandots as k3
+    from agility_tpu_torch.kernels import terrain_window as k2
+
+    return dict(contact_lcp=k1.contact_lcp.launches, terrain_window=k2.terrain_window.launches,
+                scandots=k3.scandots.launches)
 
 
 def phase_slice(num_envs, steps):
     from agility_tpu_torch.cli import play_bbc
-    from agility_tpu_torch.kernels import contact_lcp as k1
     from agility_tpu_torch.physics import heightfield as hf
 
     args = play_bbc.get_args(["--device", "cuda", "--num_envs", str(num_envs),
                               "--checkpoint", CHECKPOINT, "--mode", "trot", "--vx", "1.0",
                               "--steps", str(steps)])
-    k1.contact_lcp.launches = 0
+    _counts_zero()
     res = play_bbc.run(args)
-    launches = k1.contact_lcp.launches
+    launches = _counts()
     s = res["state"]
     finite = all(bool(torch.isfinite(t).all()) for t in (*s.sim, s.obs_buf))
     pos = s.sim.base_pos
@@ -153,18 +417,74 @@ def phase_slice(num_envs, steps):
     # not say whether a robot stands
     root_h = pos[:, 2] - hf.sample_height(res["env"].grid, pos[:, 0], pos[:, 1])
     med_h, med_z = float(root_h.median()), float(pos[:, 2].median())
-    print(f"slice: {num_envs} envs x {steps} control steps, K1 launches {launches} "
+    print(f"BBC slice: {num_envs} envs x {steps} control steps, launches {launches} "
           f"(substeps run {res['substeps']}), all states finite {finite}, "
           f"median base height over terrain {med_h:.4f} m (world z {med_z:.4f} m), "
           f"{res['env_steps_per_s']:.1f} env-steps/s on {torch.cuda.get_device_name(0)}",
           flush=True)
-    if launches != res["substeps"]:
-        raise SystemExit("slice: the K1 launch count differs from the substeps run")
+    if launches["contact_lcp"] != res["substeps"]:
+        raise SystemExit("BBC slice: the K1 launch count differs from the substeps run")
+    if launches["terrain_window"] != steps + 1:
+        raise SystemExit("BBC slice: the K2 launch count differs from the control steps run")
     if not finite:
-        raise SystemExit("slice: non-finite state")
+        raise SystemExit("BBC slice: non-finite state")
     if not 0.15 <= med_h <= 0.45:
-        raise SystemExit("slice: median base height over terrain outside [0.15, 0.45] m")
-    return res, launches
+        raise SystemExit("BBC slice: median base height over terrain outside [0.15, 0.45] m")
+    return launches
+
+
+def phase_tsc_slice(num_envs, steps):
+    from agility_tpu_torch.cli import play_tsc
+    from agility_tpu_torch.physics import heightfield as hf
+
+    args = play_tsc.get_args(["--device", "cuda", "--num_envs", str(num_envs), "--courses",
+                              "64", "--steps", str(steps), "--checkpoint", TSC_CHECKPOINT,
+                              "--bbc_path", TSC_BBC])
+    _counts_zero()
+    res = play_tsc.run(args)
+    launches = _counts()
+    env, s = res["env"], res["state"]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (*s.sim, s.obs_buf, s.obs_bbc_buf, s.seesaw_theta))
+    pos = s.sim.base_pos
+    floor = hf.sample_height(env.grid, pos[:, 0], pos[:, 1], env._weights(s))
+    med_h = float((pos[:, 2] - floor).median())
+    want = dict(contact_lcp=env.engine_cfg.decimation * res["steps"],
+                terrain_window=res["steps"], scandots=res["steps"])
+    print(f"TSC slice: {num_envs} envs x 64 courses x {steps} control steps, launches "
+          f"{launches} (want {want}), all states finite {finite}, median base height over "
+          f"the folded floor {med_h:.4f} m; episodes {res['episodes']}, course completions "
+          f"{res['completions']}, mean goal index "
+          f"{float(s.cur_goal_idx.float().mean()):.3f}, {res['env_steps_per_s']:.1f} "
+          f"env-steps/s on {torch.cuda.get_device_name(0)}", flush=True)
+    if launches != want:
+        raise SystemExit("TSC slice: a kernel's launch count differs from the steps run")
+    if not finite:
+        raise SystemExit("TSC slice: non-finite state")
+    if not 0.15 <= med_h <= 0.45:
+        raise SystemExit("TSC slice: median base height over the floor outside [0.15, 0.45] m")
+    tsc_busy_share(res, num_envs)
+    return launches
+
+
+def tsc_busy_share(res, num_envs, steps=2):
+    """Device ops and busy time per TSC control step under torch.profiler
+    (kernel, copy and fill durations on one stream), against the slice's
+    unprofiled step time.  A reading, not a gate."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    env, policy, s = res["env"], res["policy"], res["state"]
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            s, _ = policy.step(env, s)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.device_time_total for e in dev) / 1e3 / steps
+    step_ms = num_envs / res["env_steps_per_s"] * 1e3
+    print(f"TSC profile: {len(dev) / steps:.0f} device ops per control step, device busy "
+          f"{busy_ms:.2f} ms per step, {100 * busy_ms / step_ms:.1f}% of the unprofiled "
+          f"{step_ms:.1f} ms step", flush=True)
 
 
 def main():
@@ -175,31 +495,54 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from agility_tpu_torch.kernels import build
     from agility_tpu_torch.kernels import contact_lcp as k1
+    from agility_tpu_torch.kernels import scandots as k3
+    from agility_tpu_torch.kernels import terrain_window as k2
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
+    # one nvcc per source, all started together: each load() waits on its
+    # own nvcc process, so the threads only wait
     t0 = time.perf_counter()
-    build.load("contact_lcp")
-    dt = time.perf_counter() - t0
-    if "contact_lcp" in build.ptxas_info:
-        print(f"build: contact_lcp.cu with nvcc for sm_90a in {dt:.2f} s", flush=True)
-        print(build.ptxas_info["contact_lcp"].strip(), flush=True)
-    else:
-        print(f"build: contact_lcp loaded, already built under {build.BUILD_DIR}", flush=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.load, KERNELS))
+    built = [k for k in KERNELS if k in build.ptxas_info]
+    print(f"build: {built or 'nothing'} with nvcc for sm_90a (one process each, in parallel) "
+          f"in {time.perf_counter() - t0:.2f} s; already built: "
+          f"{[k for k in KERNELS if k not in built]} under {build.BUILD_DIR}", flush=True)
+    for name in built:
+        print(f"ptxas {name}:\n{build.ptxas_info[name].strip()}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
 
-    k1_rows = phase_k1(NUM_ENVS)
-    phase_parity()
-    res, launches = phase_slice(NUM_ENVS, STEPS)
+    rows, t = {}, time.perf_counter()
+    bbc = bbc_case()
+    for name, phase in (("K1", lambda: phase_k1([("bbc", *bbc), ("tsc", *tsc_case())])),
+                        ("K2", lambda: phase_k2(bbc)), ("K3", phase_k3),
+                        ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
+                        ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
+                        ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS))):
+        rows[name] = phase()
+        print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
 
-    warm = k1_rows["warm"]
-    print(json.dumps({"kernels": [{
-        "name": "contact_lcp", "route": "cuda", "source": k1.SOURCE,
-        "replaces": k1.TPU_KERNEL, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k1_rows.values()),
-        "ms": warm["ms"], "plain_ms": warm["plain_ms"]}]}), flush=True)
+    paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"])
+    launches = lambda k: {p: n[k] for p, n in paths.items()}
+    by_shape = lambda r: {k: dict(ms=v["ms"], plain_ms=v["plain_ms"]) for k, v in r.items()}
+    max_err = lambda r: max(v["max_abs_err"] for v in r.values())
+    kernels = [
+        dict(name="contact_lcp", route="cuda", source=k1.SOURCE, replaces=k1.TPU_KERNEL,
+             max_abs_err=max_err(rows["K1"]), ms=rows["K1"]["bbc warm"]["ms"],
+             plain_ms=rows["K1"]["bbc warm"]["plain_ms"], by_shape=by_shape(rows["K1"])),
+        dict(name="terrain_window", route="cuda", source=k2.SOURCE, replaces=k2.TPU_KERNEL,
+             max_abs_err=max_err(rows["K2"]), ms=rows["K2"]["tsc"]["ms"],
+             plain_ms=rows["K2"]["tsc"]["plain_ms"], by_shape=by_shape(rows["K2"])),
+        dict(name="scandots", route="cuda", source=k3.SOURCE, replaces=k3.TPU_KERNEL,
+             **rows["K3"]),
+    ]
+    for k in kernels:
+        by_path = launches(k["name"])
+        k.update(launches=sum(by_path.values()), launches_by_path=by_path)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

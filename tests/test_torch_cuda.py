@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from agility_tpu_torch.kernels import contact_lcp as k1
+from agility_tpu_torch.kernels import scandots as k3
+from agility_tpu_torch.kernels import terrain_window as k2
 from agility_tpu_torch.physics import engine as teng
 from agility_tpu_torch.physics import soa as tsoa
-from torch_cases import N, S, batch_case, contact_case, k1_args, model_consts
+from torch_cases import N, S, batch_case, contact_case, k1_args, layered_case, model_consts
 
 
 @pytest.fixture
@@ -55,3 +57,32 @@ def test_control_step_on_card_matches_cpu(card):
     for k, atol in dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2).items():
         torch.testing.assert_close(getattr(g, k).cpu(), getattr(c, k), rtol=0, atol=atol)
     assert float(cbf.abs().max()) > 1.0                   # contacts were active
+
+
+@pytest.mark.cuda
+def test_terrain_window_kernel_matches_reference(card):
+    """K2 against its plain version, exactly (chip_smoke.py repeats this at
+    N = 6144 on the 64-course world): with weights and a ceiling, without
+    weights, and on a floor-only grid."""
+    grid, c, w, _, _ = layered_case(device="cuda")
+    floor_only = grid._replace(layer_id=None, lever=None, ceiling=None, ceiling_layer=None)
+    for g, wt in ((grid, w), (grid, None), (floor_only, None)):
+        before = k2.terrain_window.launches
+        got = k2.terrain_window(g, c, 32, wt)
+        torch.cuda.synchronize()
+        assert k2.terrain_window.launches == before + 1
+        ref = k2.terrain_window_reference(g, c, 32, wt)
+        for f in ("values", "x0", "y0") + (("ceil",) if g.ceiling is not None else ()):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+@pytest.mark.cuda
+def test_scandots_kernel_matches_reference(card):
+    """K3 against its plain version, exactly (bf16 fold, min3, floor node)."""
+    grid, c, w, px, py = layered_case(device="cuda")
+    for wt in (w, None):
+        before = k3.scandots.launches
+        got = k3.scandots(grid, c, 34, wt, px, py)
+        torch.cuda.synchronize()
+        assert k3.scandots.launches == before + 1
+        assert torch.equal(got, k3.scandots_reference(grid, c, 34, wt, px, py))

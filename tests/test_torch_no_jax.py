@@ -1,6 +1,7 @@
 """The port runs where jax and flax are not installed: a fresh interpreter
 with both blocked imports every module of agility_tpu_torch and
-chip_smoke.py, then takes two env steps of 2 envs on the CPU."""
+chip_smoke.py, then takes two env steps of 2 envs on the CPU; a second one
+plays two hierarchical TSC steps of 2 envs on a 2-course world."""
 import os
 import subprocess
 import sys
@@ -32,10 +33,33 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_imports_and_steps_without_jax():
+TSC_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = sys.modules["flax"] = None
+    import torch
+    from agility_tpu_torch.cli import play_tsc
+    res = play_tsc.run(play_tsc.get_args(["--device", "cpu", "--num_envs", "2",
+                                          "--courses", "2", "--steps", "2"]))
+    assert res["state"].obs_buf.shape == (2, 800)
+    assert bool(torch.isfinite(res["state"].obs_buf).all())
+    assert not any(k == "jax" or k.startswith(("jax.", "flax"))
+                   for k, v in sys.modules.items() if v is not None)
+    print("ok")
+""")
+
+
+def _run(script):
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")]))}
-    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_port_imports_and_steps_without_jax():
+    _run(SCRIPT)
+
+
+def test_tsc_play_without_jax():
+    _run(TSC_SCRIPT)

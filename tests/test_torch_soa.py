@@ -259,7 +259,7 @@ def test_substep_warm_start_matches(rng):
     jg, tg = _rough()
     cfg_j = jeng.EngineConfig(warm_start=True, jacobi_iters=5)
     cfg_t = teng.EngineConfig(warm_start=True, jacobi_iters=5)
-    sd, (target, kp, kd, prm, sampler), _ = tsoa.batch_inputs(cfg_t, tg, ts, tctl, tprm)
+    sd, (target, kp, kd, prm, sampler, _), _ = tsoa.batch_inputs(cfg_t, tg, ts, tctl, tprm)
     lam0 = np.abs(rng.normal(0, 0.05, (3, TC.S, N))).astype(np.float32)
     got = tsoa.substep(TMC, cfg_t, sd, target, kp, kd, prm, sampler, lam0=torch.as_tensor(lam0))
 

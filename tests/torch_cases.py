@@ -39,7 +39,7 @@ def model_consts(device="cpu"):
 def contact_case(seed=0, device="cpu"):
     """soa.pre_contact's quantities (plus mu) for one substep of a random batch."""
     s, ctl, prm, grid = batch_case(seed, device)
-    sd, (target, kp, kd, p, sampler), _ = tsoa.batch_inputs(CFG, grid, s, ctl, prm)
+    sd, (target, kp, kd, p, sampler, _), _ = tsoa.batch_inputs(CFG, grid, s, ctl, prm)
     pre = tsoa.pre_contact(model_consts(device), CFG, sd, target, kp, kd, p, sampler)
     pre["mu"] = p["friction"]
     return pre
@@ -49,3 +49,27 @@ def k1_args(pre, lam0=None):
     return tsoa.contact_problem(pre["phi"], pre["n"], pre["r"], pre["lever"], pre["f"],
                                 pre["u_free"], pre["mu"], CFG.dt, lam0=lam0,
                                 **tsoa.contact_kwargs(CFG))
+
+
+def layered_case(seed=0, device="cpu", n=64, k=132):
+    """A rough world with two movable layers, a lever field and a ceiling with
+    its own layer tags (as tests/test_torch_terrain.py), window centres over
+    it and off its edges, per-env weights, and k scan points per env."""
+    rng = np.random.default_rng(seed)
+    H, W = 96, 128
+    layer_id = np.zeros((H, W), np.int8)
+    layer_id[20:30, 40:60], layer_id[50:60, 70:90] = 1, 2
+    lever = np.zeros((H, W), np.float32)
+    lever[70:80, 30:50] = np.linspace(-0.5, 0.5, 20)[None, :]
+    ceil = np.full((H, W), thf.NO_CEILING, np.float32)
+    ceil[30:40, 20:40] = 0.45
+    ceil_layer = np.zeros((H, W), np.int8)
+    ceil_layer[30:40, 30:40] = 1
+    grid = thf.from_numpy((0.2 * rng.normal(size=(H, W))).astype(np.float32), 0.05, (-1.0, -1.0),
+                          device, layer_id=layer_id, lever=lever, ceiling=ceil,
+                          ceiling_layer=ceil_layer)
+    c = np.stack([rng.uniform(-1.5, 4.0, n), rng.uniform(-1.5, 6.0, n)], -1)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    px = c[:, 0:1] + rng.uniform(-0.8, 0.8, (n, k))
+    py = c[:, 1:2] + rng.uniform(-0.8, 0.8, (n, k))
+    return grid, f32(c), f32(rng.uniform(-0.3, 0.3, (n, 3))), f32(px), f32(py)
