@@ -21,7 +21,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS = {}
-ptxas_info = {}        # name -> nvcc's resource report, for libraries built by this process
+ptxas_info = {}        # name (and defines) -> nvcc's resource report, for libraries
+                       # built by this process
 
 
 def _nvcc() -> str:
@@ -32,22 +33,24 @@ def _nvcc() -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of `csrc/<name>.cu`, building it if needed."""
-    if name in _LIBS:
-        return _LIBS[name]
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The ctypes handle of `csrc/<name>.cu`, building it if needed, with the
+    preprocessor macros `defines` (a build of its own)."""
+    key = (name, *defines)
+    if key in _LIBS:
+        return _LIBS[key]
     src = os.path.join(CSRC, f"{name}.cu")
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                             capture_output=True, text=True)
+        res = subprocess.run([_nvcc(), *flags, "-o", tmp, src], capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n{res.stderr}")
-        ptxas_info[name] = res.stderr
+        ptxas_info[" ".join(key)] = res.stderr
         os.replace(tmp, out)
-    _LIBS[name] = ctypes.CDLL(out)
-    return _LIBS[name]
+    _LIBS[key] = ctypes.CDLL(out)
+    return _LIBS[key]

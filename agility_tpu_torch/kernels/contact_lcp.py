@@ -19,6 +19,13 @@ Returns lam (N, 3S).
 
 `contact_lcp` dispatches on the tensors' device alone: CPU tensors take
 `contact_lcp_reference`; CUDA tensors launch the kernel, or raise.
+
+The kernel runs persistent blocks that stream each env's G through a
+two-stage ring of asynchronous copies in shared memory into registers (8
+lanes per contact) and sweep it there.  `launch_config` computes its launch
+parameters (threads, row stride, shared memory, grid, copy width) from the
+shapes alone, so the CPU tests check the layout rules that the kernel's
+launcher checks again.
 """
 from __future__ import annotations
 
@@ -30,6 +37,40 @@ from agility_tpu_torch.kernels import build
 
 TPU_KERNEL = "agility_tpu/physics/pallas_contact.py:27"   # _kernel; pallas_call at :85
 SOURCE = "agility_tpu_torch/csrc/contact_lcp.cu"
+MAX_CONTACTS = 32
+MAX_SMEM = 232_448          # bytes of shared memory a block can use on Hopper (227 KB)
+LANES_PER_CONTACT = 8       # each holds float4 chunks q, q + 8, q + 16 of the contact's 3 rows
+
+
+def _pad4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def launch_config(N: int, S: int, sm_count: int, blocks_per_sm: int) -> dict:
+    """The kernel's launch parameters for N envs of S contacts (M = 3S rows):
+
+      threads  8 lanes per contact, rounded up to whole warps
+      ld       G's row stride in shared memory, in floats: M rounded up to
+               whole float4 chunks (a contact's 8 lanes read 8 consecutive
+               chunks of a row, conflict-free at any such stride)
+      smem     bytes: two ring stages (G in rows of ld, then vf, bias, n,
+               lam0, act, mu, dinv, each padded to 4 floats), lam and G lam
+               (ld floats each) and the stages' two 8-byte barriers
+      grid     min(N, blocks_per_sm * sm_count): persistent blocks
+      vec      4 when S % 4 == 0: then ld == M and every per-env segment is
+               16-byte aligned, so one thread copies an env with bulk (TMA)
+               copies; else 1: every thread copies 4 bytes at a time
+
+    Raises if the shared memory exceeds what a block can use."""
+    M = 3 * S
+    ld = _pad4(M)
+    stage = M * ld + 4 * _pad4(M) + 2 * _pad4(S) + _pad4(9 * S)
+    smem = 4 * (2 * stage + 2 * ld) + 16
+    if smem > MAX_SMEM:
+        raise ValueError(f"contact_lcp: S = {S} needs {smem} bytes of shared memory, "
+                         f"more than the {MAX_SMEM} a block can use")
+    return dict(threads=32 * -(-LANES_PER_CONTACT * S // 32), ld=ld, smem=smem,
+                grid=max(1, min(N, blocks_per_sm * sm_count)), vec=4 if S % 4 == 0 else 1)
 
 
 def _project(lam, n, act, mu, lam_max):
@@ -60,12 +101,33 @@ def contact_lcp_reference(G, vf, bias, n, act, dinv, mu, lam0, *, iters: int,
 
 def _lib():
     lib = build.load("contact_lcp")
-    fn = lib.contact_lcp_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
-            [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.contact_lcp_launch.argtypes is None:
+        lib.contact_lcp_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
+            [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.contact_lcp_launch.restype = ctypes.c_int
+        lib.contact_lcp_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.contact_lcp_blocks_per_sm.restype = ctypes.c_int
+    return lib
+
+
+_OCCUPANCY = {}     # (device index, S) -> (SM count, blocks per SM)
+
+
+def device_launch_config(N: int, S: int, dev: torch.device) -> dict:
+    """`launch_config` on the card `dev`: its SM count, and the blocks of the
+    S-contact kernel that fit on one SM by the CUDA occupancy query (cached
+    per device and S)."""
+    key = (dev.index, S)
+    if key not in _OCCUPANCY:
+        cfg = launch_config(1, S, 1, 1)
+        blocks = _lib().contact_lcp_blocks_per_sm(cfg["threads"], cfg["smem"], cfg["vec"])
+        if blocks <= 0:
+            raise RuntimeError(f"contact_lcp: occupancy query gave {blocks} blocks per SM "
+                               f"for S = {S} ({cfg['threads']} threads, {cfg['smem']} bytes)")
+        _OCCUPANCY[key] = (torch.cuda.get_device_properties(dev).multi_processor_count, blocks)
+    sm_count, blocks_per_sm = _OCCUPANCY[key]
+    return dict(launch_config(N, S, sm_count, blocks_per_sm), sm_count=sm_count,
+                blocks_per_sm=blocks_per_sm)
 
 
 def contact_lcp(G, vf, bias, n, act, dinv, mu, lam0, *, iters: int, relax: float,
@@ -88,16 +150,23 @@ def contact_lcp(G, vf, bias, n, act, dinv, mu, lam0, *, iters: int, relax: float
             raise ValueError(f"contact_lcp: {name} must be a contiguous float32 "
                              f"{shp} tensor on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if M % 3 or S > 32:
-        raise ValueError(f"contact_lcp: 3S = {M} rows; the kernel takes S <= 32 contacts")
+    if M % 3 or S > MAX_CONTACTS:
+        raise ValueError(f"contact_lcp: 3S = {M} rows; the kernel takes S <= "
+                         f"{MAX_CONTACTS} contacts")
     out = torch.empty_like(vf)
     if N == 0:
         return out
-    launch = _lib()
+    lib = _lib()
+    ptrs = [t.data_ptr() for t in args]
     with torch.cuda.device(dev):
+        cfg = device_launch_config(N, S, dev)
+        if cfg["vec"] == 4 and any(p % 16 for p in ptrs):
+            raise ValueError("contact_lcp: at S % 4 == 0 the kernel reads its inputs with "
+                             "bulk copies, which need every input 16-byte aligned")
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(*(t.data_ptr() for t in args), out.data_ptr(), N, S, int(iters),
-                     float(relax), float(lam_max), stream)
+        err = lib.contact_lcp_launch(*ptrs, out.data_ptr(), N, S, int(iters), float(relax),
+                                     float(lam_max), cfg["threads"], cfg["ld"], cfg["smem"],
+                                     cfg["grid"], cfg["vec"], stream)
     if err != 0:
         raise RuntimeError(f"contact_lcp kernel launch failed: cudaError {err}")
     contact_lcp.launches += 1

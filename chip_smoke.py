@@ -16,7 +16,12 @@ Phases (any failure exits nonzero and prints no result line):
                the tunnel roof so that ceiling rows are active).  5 sweeps
                warm-started from a nonzero lam0, and 10 sweeps cold.  Tolerance:
                max |kernel - plain| <= 1e-4 x max |plain| (float32, sums in
-               another order).
+               another order); two calls on the same inputs give the same bits.
+               Each kernel is timed with the L2 warm across calls and with
+               the L2 flushed (a 256 MB write before each call); its bound is
+               the larger of its bytes (each input read once, each output
+               written once) over 3.35 TB/s and its flops over 67 TFLOP/s,
+               and its share of the bound is taken from the flushed time.
   3. K2      — the terrain window against patch.extract_batch, exactly equal
                (floor, ceiling, origins), at both paths' shapes: the default
                64-course world (1320 x 1800, five surfaces), N = 6144 windows of
@@ -25,9 +30,11 @@ Phases (any failure exits nonzero and prints no result line):
                under the windows > 0; and the BBC's rough grid (one surface, no
                weights), N = 4096 windows at the spawn points and, for every
                other env, anywhere on or off the map, so that origins clamp at
-               the edges.
+               the edges.  The bytes count each distinct grid cell under the
+               windows once.
   4. K3      — the scandots against patch.measure_scandots_batch on that world,
-               N = 6144 scans of 132 points, window 34: exactly equal.
+               N = 6144 scans of 132 points, window 34: exactly equal.  The
+               bytes count each distinct grid node the scans read once.
   5. parity  — one BBC control step of a 64-env batch on the card against the
                same step on the CPU (plain versions), from one state.
   6. TSC parity — one TSC env step of 64 envs (8 courses) on the card against the
@@ -69,14 +76,22 @@ STEPS = 250         # control steps of the BBC slice phase
 TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
 TSC_STEPS = 200     # control steps of the TSC slice phase
 SOA_TOL = dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+FLUSH_BYTES = 256 << 20     # written between flushed calls: five times the 50 MB L2
 
 
-def cuda_ms(fn, reps=30, warmup=5):
-    """Median milliseconds of fn() on the card, CUDA events around each call."""
+def cuda_ms(fn, reps=30, warmup=5, flush=False):
+    """Median milliseconds of fn() on the card, CUDA events around each call.
+    With `flush`, a 256 MB buffer is written before each call, so that its
+    inputs come from device memory and not from the L2."""
+    buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda") if flush else None
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if flush:
+            buf.fill_(1)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -84,6 +99,39 @@ def cuda_ms(fn, reps=30, warmup=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(moved, flops=0):
+    """(ms, what bounds it): the least time the card could take to move
+    `moved` bytes and do `flops` float32 operations."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(fn, plain, moved, flops=0):
+    """The kernel's warm and flushed times, the plain version's, the bound and
+    the share of the bound (from the flushed time)."""
+    ms, flushed = cuda_ms(fn), cuda_ms(fn, flush=True)
+    bound_ms, by = bound(moved, flops)
+    return dict(ms=ms, flushed_ms=flushed, plain_ms=cuda_ms(plain), bytes=moved,
+                bound_ms=bound_ms, bound_by=by, share=bound_ms / flushed)
+
+
+def fmt_times(r):
+    return (f"kernel {r['ms']:.4f} ms warm, {r['flushed_ms']:.4f} ms flushed, plain torch "
+            f"{r['plain_ms']:.4f} ms; {r['bytes']} bytes, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), share of bound {100 * r['share']:.1f}%")
+
+
+def distinct_cells(shape, rows, cols):
+    """Distinct cells of an (H, W) grid among index tensors rows, cols."""
+    mask = torch.zeros(shape, dtype=torch.bool, device=rows.device)
+    mask[rows, cols] = True
+    return int(mask.sum())
 
 
 def bbc_case(num_envs=NUM_ENVS, device="cuda"):
@@ -171,28 +219,37 @@ def phase_k1(cases):
             args = k1_inputs(env, s, params, warm)
             kw = dict(iters=iters, relax=0.6)
             out = k1.contact_lcp(*args, **kw)
+            again = k1.contact_lcp(*args, **kw)
             ref = k1.contact_lcp_reference(*args, **kw)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             scale = float(ref.abs().max())
             rel = err / max(scale, 1e-30)
+            same = torch.equal(out, again)
             n_active = int(args[4].sum())
             n_ceil = int(args[4][:, S:].sum())
             lam0_max = float(args[7].abs().max())
-            ms = cuda_ms(lambda: k1.contact_lcp(*args, **kw))
-            plain_ms = cuda_ms(lambda: k1.contact_lcp_reference(*args, **kw))
-            print(f"K1 {label}: N={args[0].shape[0]} S={args[4].shape[1]} iters={iters} "
+            N, M = args[1].shape
+            # each input read once and lam written once; a sweep is one
+            # (M x M) matrix-vector product per env
+            t = timed(lambda: k1.contact_lcp(*args, **kw),
+                      lambda: k1.contact_lcp_reference(*args, **kw),
+                      nbytes(*args, out), 2 * iters * N * M * M)
+            cfg = k1.device_launch_config(N, M // 3, args[0].device)
+            print(f"K1 {label}: N={N} S={M // 3} iters={iters} launch {cfg}; "
                   f"active contacts {n_active} (ceiling rows {n_ceil}) max|lam0| "
                   f"{lam0_max:.4g} max|lam| {scale:.4g} max abs err {err:.3e} rel {rel:.3e} "
-                  f"(tol {K1_RTOL:g}); kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms",
-                  flush=True)
+                  f"(tol {K1_RTOL:g}), two calls bit-identical {same}; G {nbytes(args[0])} "
+                  f"bytes; {fmt_times(t)}", flush=True)
             if not np.isfinite(err) or rel > K1_RTOL:
                 raise SystemExit(f"K1 {label}: kernel disagrees with the plain version")
+            if not same:
+                raise SystemExit(f"K1 {label}: two calls on the same inputs differ")
             if n_active == 0 or (warm and lam0_max == 0.0):
                 raise SystemExit(f"K1 {label}: inputs exercise no contact")
             if env.grid.ceiling is not None and n_ceil == 0:
                 raise SystemExit(f"K1 {label}: no ceiling row is active")
-            rows[label] = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms)
+            rows[label] = dict(max_abs_err=err, rel_err=rel, **t)
     return rows
 
 
@@ -225,6 +282,10 @@ def course_case(n, seed=0):
     return grid, f32(c), f32(w), f32(scan_c), f32(pts[..., 0]), f32(pts[..., 1])
 
 
+def _surfaces(grid, names):
+    return [getattr(grid, f) for f in names if getattr(grid, f) is not None]
+
+
 def _k2_check(label, grid, c, size, w):
     """K2 against its plain version on one input: exactly equal floor,
     ceiling and origins.  Returns the plain version's patch and the row."""
@@ -236,15 +297,23 @@ def _k2_check(label, grid, c, size, w):
     fields = ("values", "x0", "y0") + (("ceil",) if ref.ceil is not None else ())
     err = max(float((getattr(got, f) - getattr(ref, f)).abs().max()) for f in fields)
     same = all(torch.equal(getattr(got, f), getattr(ref, f)) for f in fields)
-    ms = cuda_ms(lambda: k2.terrain_window(grid, c, size, w))
-    plain_ms = cuda_ms(lambda: k2.terrain_window_reference(grid, c, size, w))
+    ar = torch.arange(ref.values.shape[1], device=c.device)
+    cells = distinct_cells(grid.height.shape, (ref.x0[:, None] + ar)[:, :, None],
+                           (ref.y0[:, None] + ar)[:, None, :])
+    # every surface the grid has is read (these inputs carry weights wherever
+    # the grid has lever and layer surfaces), once per distinct cell
+    per_cell = sum(t.element_size() for t in _surfaces(
+        grid, ("height", "lever", "layer_id", "ceiling", "ceiling_layer")))
+    moved = cells * per_cell + nbytes(c, w, *(getattr(got, f) for f in fields))
+    t = timed(lambda: k2.terrain_window(grid, c, size, w),
+              lambda: k2.terrain_window_reference(grid, c, size, w), moved)
     print(f"K2 {label}: N={c.shape[0]} windows of {size} on the {tuple(grid.height.shape)} "
-          f"grid, weights {None if w is None else tuple(w.shape)}; max abs err {err:.3e}, "
-          f"exactly equal {same}; kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms",
-          flush=True)
+          f"grid, weights {None if w is None else tuple(w.shape)}; {cells} distinct cells "
+          f"under the windows ({per_cell} bytes each); max abs err {err:.3e}, exactly equal "
+          f"{same}; {fmt_times(t)}", flush=True)
     if not same:
         raise SystemExit(f"K2 {label}: kernel differs from the plain version")
-    return ref, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return ref, dict(max_abs_err=err, cells=cells, **t)
 
 
 def phase_k2(bbc, n=TSC_ENVS):
@@ -295,16 +364,22 @@ def phase_k3(n=TSC_ENVS):
     r, col = pt.scandot_nodes(grid, sc, 34, px, py)
     counts = dict(layer=int((grid.layer_id[r, col] != 0).sum()),
                   lever=int((grid.lever[r, col] != 0).sum()))
-    ms = cuda_ms(lambda: k3.scandots(grid, sc, 34, w, px, py))
-    plain_ms = cuda_ms(lambda: k3.scandots_reference(grid, sc, 34, w, px, py))
+    # each point reads its node and the +x and +y neighbours of the floor
+    # surfaces, once per distinct node
+    cells = distinct_cells(grid.height.shape, torch.stack([r, r + 1, r]),
+                           torch.stack([col, col, col + 1]))
+    per_cell = sum(t.element_size() for t in _surfaces(grid, ("height", "lever", "layer_id")))
+    t = timed(lambda: k3.scandots(grid, sc, 34, w, px, py),
+              lambda: k3.scandots_reference(grid, sc, 34, w, px, py),
+              cells * per_cell + nbytes(sc, w, px, py, got))
     print(f"K3: N={n} scans x {px.shape[1]} points, window 34, floor nodes on {counts}; "
-          f"max abs err {err:.3e}, exactly equal {same}; "
-          f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms", flush=True)
+          f"{cells} distinct nodes read ({per_cell} bytes each); max abs err {err:.3e}, "
+          f"exactly equal {same}; {fmt_times(t)}", flush=True)
     if not same:
         raise SystemExit("K3: kernel differs from the plain version")
     if min(counts.values()) == 0:
         raise SystemExit("K3: the scans cross no layer or lever cell")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return {"tsc": dict(max_abs_err=err, cells=cells, **t)}
 
 
 def phase_parity(num_envs=64):
@@ -526,22 +601,20 @@ def main():
         print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
 
     paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"])
-    launches = lambda k: {p: n[k] for p, n in paths.items()}
-    by_shape = lambda r: {k: dict(ms=v["ms"], plain_ms=v["plain_ms"]) for k, v in r.items()}
-    max_err = lambda r: max(v["max_abs_err"] for v in r.values())
-    kernels = [
-        dict(name="contact_lcp", route="cuda", source=k1.SOURCE, replaces=k1.TPU_KERNEL,
-             max_abs_err=max_err(rows["K1"]), ms=rows["K1"]["bbc warm"]["ms"],
-             plain_ms=rows["K1"]["bbc warm"]["plain_ms"], by_shape=by_shape(rows["K1"])),
-        dict(name="terrain_window", route="cuda", source=k2.SOURCE, replaces=k2.TPU_KERNEL,
-             max_abs_err=max_err(rows["K2"]), ms=rows["K2"]["tsc"]["ms"],
-             plain_ms=rows["K2"]["tsc"]["plain_ms"], by_shape=by_shape(rows["K2"])),
-        dict(name="scandots", route="cuda", source=k3.SOURCE, replaces=k3.TPU_KERNEL,
-             **rows["K3"]),
-    ]
-    for k in kernels:
-        by_path = launches(k["name"])
-        k.update(launches=sum(by_path.values()), launches_by_path=by_path)
+    keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share")
+    kernels = []
+    # each kernel's headline numbers are those of its first shape: K1 at the
+    # BBC's (warm, 5 sweeps), K2 and K3 at the TSC's
+    for mod, name, r, head in ((k1, "contact_lcp", rows["K1"], "bbc warm"),
+                               (k2, "terrain_window", rows["K2"], "tsc"),
+                               (k3, "scandots", rows["K3"], "tsc")):
+        by_path = {p: n[name] for p, n in paths.items()}
+        kernels.append(dict(
+            name=name, route="cuda", source=mod.SOURCE, replaces=mod.TPU_KERNEL,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(v["max_abs_err"] for v in r.values()),
+            **{k: r[head][k] for k in keys}, library_ms=None,
+            by_shape={shape: {k: v[k] for k in keys} for shape, v in r.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ from agility_tpu_torch.kernels import contact_lcp as k1
 from agility_tpu_torch.physics import soa as tsoa
 from torch_cases import CFG, N, S, contact_case, k1_args
 
+
 def _planar(x):
     """(N, 3S) contact-interleaved [3s + a] -> the Pallas kernel's planar [a S + s]."""
     return x.view(N, S, 3).transpose(1, 2).reshape(N, 3 * S)
@@ -100,3 +101,43 @@ def test_wrapper_dispatch_and_layout():
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="no kernel"):
         k1.contact_lcp(*(t.to("meta") for t in args), iters=5, relax=0.6)
+
+
+@pytest.mark.parametrize("s", range(1, k1.MAX_CONTACTS + 1))
+def test_launch_config_layout(s):
+    """The kernel's launch parameters at every S the wrapper takes: shared
+    memory within a block's 227 KB; a row stride of whole float4 chunks, at
+    most 3 per lane of a contact, where a contact's 8 lanes (a quarter-warp)
+    reading chunks q + 8k of one row hit 8 disjoint bank groups; whole warps
+    with 8 lanes for every contact; a persistent grid of 1 .. N blocks;
+    16-byte copies only where every per-env segment is 16-byte aligned."""
+    M = 3 * s
+    for n, sms, per_sm in ((1, 132, 4), (7, 132, 4), (8, 132, 3), (1000, 132, 4),
+                           (4096, 132, 4), (6144, 132, 3), (5, 1, 1)):
+        cfg = k1.launch_config(n, s, sms, per_sm)
+        assert 1 <= cfg["grid"] <= n and cfg["grid"] == min(n, sms * per_sm)
+    ld, threads, smem = cfg["ld"], cfg["threads"], cfg["smem"]
+    lanes = k1.LANES_PER_CONTACT
+    assert smem <= k1.MAX_SMEM == 232_448
+    assert ld >= M and ld % 4 == 0 and ld - M < 4
+    chunks = ld // 4
+    assert -(-chunks // lanes) <= 3                    # the kernel holds 3 chunks a row
+    for r in range(M):
+        for k in range(-(-chunks // lanes)):
+            groups = {(r * ld // 4 + q + lanes * k) % 8 for q in range(lanes)
+                      if q + lanes * k < chunks}
+            assert len(groups) == min(lanes, chunks - lanes * k)
+    assert threads % 32 == 0 and lanes * s <= threads < lanes * s + 32
+    # two ring stages (G in rows of ld, then the vectors), lam and G lam, two
+    # 8-byte barriers
+    assert smem >= 4 * (2 * (M * ld + 4 * M + 2 * s + 9 * s) + 2 * ld) + 16
+    assert smem % 16 == 0
+    assert cfg["vec"] == (4 if s % 4 == 0 else 1)
+    if cfg["vec"] == 4:          # bulk copies: G unpadded, every segment 16-byte multiples
+        assert ld == M and all(4 * x % 16 == 0 for x in (M * M, M, s, 9 * s))
+
+
+def test_launch_config_refuses_too_much_shared_memory():
+    assert k1.launch_config(4096, 32, 132, 2)["smem"] == 80_400
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.launch_config(4096, 64, 132, 1)

@@ -14,7 +14,8 @@ from agility_tpu_torch.kernels import scandots as k3
 from agility_tpu_torch.kernels import terrain_window as k2
 from agility_tpu_torch.physics import engine as teng
 from agility_tpu_torch.physics import soa as tsoa
-from torch_cases import N, S, batch_case, contact_case, k1_args, layered_case, model_consts
+from torch_cases import (N, S, batch_case, contact_case, k1_args, layered_case, model_consts,
+                         random_contact_problem)
 
 
 @pytest.fixture
@@ -38,6 +39,27 @@ def test_contact_lcp_kernel_matches_reference(card):
         assert k1.contact_lcp.launches == before + 1
         ref = k1.contact_lcp_reference(*args, iters=iters, relax=0.6)
         torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 8, 1000])
+@pytest.mark.parametrize("s", [1, 5, 24, 28, 32])
+def test_contact_lcp_kernel_edge_shapes(card, n, s):
+    """K1 against its plain version where the persistent grid is larger than
+    N (1, 7, 8) or does not divide it (1000), at both copy widths (S % 4 != 0
+    takes 4-byte copies) up to the largest shared memory (S = 32), warm
+    (5 sweeps from lam0 > 0) and cold (10 from zero); two calls give the same
+    bits (one block per env, no atomics)."""
+    for warm, iters in ((True, 5), (False, 10)):
+        args = [torch.as_tensor(a, device="cuda")
+                for a in random_contact_problem(n, s, seed=n + s, warm=warm)]
+        out = k1.contact_lcp(*args, iters=iters, relax=0.6)
+        again = k1.contact_lcp(*args, iters=iters, relax=0.6)
+        ref = k1.contact_lcp_reference(*args, iters=iters, relax=0.6)
+        torch.cuda.synchronize()
+        assert float(ref.abs().max()) > 0.1                   # contacts carry impulse
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+        assert torch.equal(out, again)
 
 
 @pytest.mark.cuda

@@ -73,3 +73,27 @@ def layered_case(seed=0, device="cpu", n=64, k=132):
     px = c[:, 0:1] + rng.uniform(-0.8, 0.8, (n, k))
     py = c[:, 1:2] + rng.uniform(-0.8, 0.8, (n, k))
     return grid, f32(c), f32(rng.uniform(-0.3, 0.3, (n, 3))), f32(px), f32(py)
+
+
+def random_contact_problem(n, s, seed=0, warm=True):
+    """K1's eight inputs for n envs of s contacts, from numpy: G = A A^T + I
+    (a Delassus-like SPD matrix), unit normals, free velocities that mostly
+    approach along them, about 70% of contacts active (the first always),
+    dinv the inverses of G's 3x3 diagonal blocks, and lam0 > 0 when `warm`
+    (zeros otherwise: a cold solve)."""
+    rng = np.random.default_rng(seed)
+    M = 3 * s
+    A = rng.normal(0.0, 0.1, (n, M, M))
+    G = A @ A.transpose(0, 2, 1) + np.eye(M)
+    nv = rng.normal(size=(n, s, 3))
+    nv /= np.linalg.norm(nv, axis=-1, keepdims=True)
+    blocks = G.reshape(n, s, 3, s, 3)[:, np.arange(s), :, np.arange(s), :]   # (s, n, 3, 3)
+    dinv = np.linalg.inv(blocks).transpose(1, 0, 2, 3).reshape(n, s, 9)
+    lam0 = np.abs(rng.normal(0.0, 0.1, (n, M))) if warm else np.zeros((n, M))
+    act = rng.uniform(size=(n, s)) > 0.3
+    act[:, 0] = True
+    nrm = nv.reshape(n, M)
+    arrs = (G, rng.normal(size=(n, M)) - 2.0 * nrm, rng.normal(size=(n, M)), nrm, act,
+            rng.uniform(0.3, 1.0, (n, s)), dinv, lam0)
+    G, vf, bias, nrm, act, mu, dinv, lam0 = (np.ascontiguousarray(a, np.float32) for a in arrs)
+    return G, vf, bias, nrm, act, dinv, mu, lam0
