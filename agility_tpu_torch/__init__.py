@@ -2,10 +2,11 @@
 
 Same layout and names as the JAX package (core, physics, envs, learn, io,
 cli), so each module's counterpart is found by path.  The port imports
-`torch` and never `jax`/`flax`; the only pieces it takes from `agility_tpu`
-are the jax-free config dataclasses (`agility_tpu.envs.config`), the numpy
-terrain generator (`agility_tpu.terrain.generator`) and the Go2 model asset
-(`agility_tpu/assets/go2_model.json`).
+`torch` and never `jax`/`flax`, and nothing of `agility_tpu`: it keeps its
+own copies of the jax-free config dataclasses (`envs/config.py`,
+`envs/tsc_config.py`), the numpy terrain and course generators
+(`terrain/generator.py`, `terrain/obstacle.py`) and the Go2 model asset
+(`assets/go2_model.json`).
 
 Hand-written GPU kernels live in `csrc/` (CUDA C++ for sm_90a) and are bound
 in `kernels/`; each has a plain-torch version beside it that serves CPU

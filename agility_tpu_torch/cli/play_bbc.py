@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from agility_tpu.envs.config import MOCAP_CATEGORIES
+from agility_tpu_torch.envs.config import MOCAP_CATEGORIES
 from agility_tpu_torch.cli import registry
 from agility_tpu_torch.core import quat as qm
 from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv

@@ -9,8 +9,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
-from agility_tpu.envs import config as bbc_config
-from agility_tpu.envs import tsc_config
+from agility_tpu_torch.envs import config as bbc_config
+from agility_tpu_torch.envs import tsc_config
 
 _REGISTRY: Dict[str, Callable] = {
     "go2_locomotion": bbc_config.Go2LocomotionCfg,

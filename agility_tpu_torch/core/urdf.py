@@ -3,8 +3,9 @@ agility_tpu/core/urdf.py, JSON path only).
 
 Fixed-joint subtrees are merged into their moving parent (composite
 inertia), except frames marked `dont_collapse` which stay as massless
-reported bodies.  The asset is `agility_tpu/assets/go2_model.json`; the port
-reads it in place so both packages build the same model.
+reported bodies.  The asset is the port's own `assets/go2_model.json`, a
+byte-for-byte copy of the JAX package's, so both packages build the same
+model.
 """
 from __future__ import annotations
 
@@ -24,9 +25,8 @@ GO2_DEFAULT_DOF_POS = {
 
 
 def default_asset_path() -> str:
-    import agility_tpu   # jax-free package root: only the data file is read
-
-    return os.path.join(os.path.dirname(agility_tpu.__file__), "assets", "go2_model.json")
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
+                        "go2_model.json")
 
 
 def build_model(d: dict, default_dof_pos=None) -> RobotModel:

@@ -64,7 +64,7 @@
 //   8 disjoint bank groups, at any row stride.  lam's chunks likewise.  The
 //   pad columns M .. ld - 1 (S % 4 != 0 only) are zeroed once and never
 //   copied into.
-// Measured on an H100 (PERF.md, k1_bench.py): the copies land before they
+// Measured on an H100 (PERF.md, kernel_bench.py): the copies land before they
 // are needed; what remains is the start-up wave (every block's first env
 // arrives 5-13 us in, with nothing to overlap it) and the sweeps, each two
 // barriers and a serial update phase, ~0.5 us of an env's ~3.1 us per
@@ -174,7 +174,7 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
       : "memory");
 }
 
-// Phase stamps for k1_bench.py --trace, compiled in only with -DK1_TRACE:
+// Phase stamps for kernel_bench.py --trace, compiled in only with -DK1_TRACE:
 // per block (the first kTraceBlocks) the %globaltimer (ns) at entry, when
 // its first env landed and at exit, the ns it spent waiting for envs to
 // land, loading them into registers (and issuing the next copy), and

@@ -29,17 +29,17 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from agility_tpu.envs.tsc_config import Go2AgilityCfg
-from agility_tpu.terrain import obstacle as obst_gen
 from agility_tpu_torch.core import quat as qm
 from agility_tpu_torch.core.urdf import build_go2_model
 from agility_tpu_torch.envs.go2_locomotion import compute_disc_features
+from agility_tpu_torch.envs.tsc_config import Go2AgilityCfg
 from agility_tpu_torch.kernels.scandots import scandots
 from agility_tpu_torch.physics import engine as eng
 from agility_tpu_torch.physics import heightfield as hf
 from agility_tpu_torch.physics import patch as pt
 from agility_tpu_torch.physics import soa
 from agility_tpu_torch.physics.constants import ModelConsts
+from agility_tpu_torch.terrain import obstacle as obst_gen
 from agility_tpu_torch.terrain.obstacle import lever_arm
 
 
@@ -110,7 +110,7 @@ class TscStepOutput(NamedTuple):
 _INT_FIELDS = ("episode_length", "cur_goal_idx", "spawn_goal_idx", "curr_count")
 
 
-def state_from_jax(js, device="cpu") -> AgilityState:
+def state_from_jax(js, device="cuda") -> AgilityState:
     """An AgilityState from the JAX package's AgilityState, leaf by leaf
     through numpy; the JAX PRNG key is dropped.  Lets a test start both envs
     from one state."""
@@ -126,7 +126,7 @@ def state_from_jax(js, device="cpu") -> AgilityState:
 class Go2AgilityEnv:
     """Static course and env data on `device` + step/reset functions."""
 
-    def __init__(self, cfg: Go2AgilityCfg, device="cpu", seed: int = 0):
+    def __init__(self, cfg: Go2AgilityCfg, device="cuda", seed: int = 0):
         self.cfg = cfg
         self.device = dev = torch.device(device)
         self.gen = torch.Generator(device=dev).manual_seed(seed)

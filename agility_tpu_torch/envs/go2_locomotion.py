@@ -22,15 +22,15 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from agility_tpu.envs.config import Go2LocomotionCfg
-from agility_tpu.terrain import generator as terrain_gen
 from agility_tpu_torch.core import quat as qm
 from agility_tpu_torch.core.urdf import build_go2_model
 from agility_tpu_torch.envs import mocap as mocap_mod
+from agility_tpu_torch.envs.config import Go2LocomotionCfg
 from agility_tpu_torch.physics import engine as eng
 from agility_tpu_torch.physics import heightfield as hf
 from agility_tpu_torch.physics import soa
 from agility_tpu_torch.physics.constants import ModelConsts
+from agility_tpu_torch.terrain import generator as terrain_gen
 
 
 class LocoState(NamedTuple):
@@ -70,7 +70,7 @@ class StepOutput(NamedTuple):
     reward_terms: torch.Tensor
 
 
-def state_from_jax(js, device="cpu") -> LocoState:
+def state_from_jax(js, device="cuda") -> LocoState:
     """A LocoState from the JAX package's LocoState (or any object with the
     same field names), leaf by leaf through numpy; the JAX PRNG key is
     dropped.  Lets a test start both envs from one state."""
@@ -101,7 +101,7 @@ def compute_disc_features(mc, feet_idx, osc, sim, contact_filt, root_h):
 class Go2LocomotionEnv:
     """Static env data on `device` + step/reset functions."""
 
-    def __init__(self, cfg: Go2LocomotionCfg, device="cpu", seed: int = 0,
+    def __init__(self, cfg: Go2LocomotionCfg, device="cuda", seed: int = 0,
                  motion: Optional[mocap_mod.MotionData] = None):
         if cfg.mocap_dir:
             raise NotImplementedError("the port runs the synthetic mocap clips only")

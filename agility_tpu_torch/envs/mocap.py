@@ -118,13 +118,14 @@ _GAIT_SPEED = {"walk": 0.4, "pace": 1.0, "trot": 1.0, "canter": 1.6, "jump": 1.2
 
 def synthetic(model, categories: Sequence[str], n_frames: int = 120,
               frame_dur: float = 1 / 30.0, clips_per_cat: int = 2, seed: int = 0,
-              active: Optional[Sequence[str]] = None, device="cpu") -> MotionData:
+              active: Optional[Sequence[str]] = None, device="cuda") -> MotionData:
     """Procedural CPG gait clips with FK-consistent toe positions (the same
     clips as the JAX package's `synthetic` for the same seed)."""
     from agility_tpu_torch.physics import soa
     from agility_tpu_torch.physics.constants import ModelConsts
 
-    c = soa.consts_of(ModelConsts.from_model(model))
+    # the clips' FK precompute runs on the host, whatever `device` holds them
+    c = soa.consts_of(ModelConsts.from_model(model, "cpu"))
     rng = np.random.default_rng(seed)
     default = np.asarray(model.default_dof_pos)
     clips, labels, weights, durs = [], [], [], []

@@ -3,12 +3,14 @@
 Each `csrc/<name>.cu` exposes a plain C interface.  On first use it is
 compiled with nvcc for sm_90a (Hopper) into a shared library under
 `build/kernels/` beside the package (listed in .gitignore), keyed by a hash
-of the source and flags, and loaded with ctypes.  Only sources in this
+of the source, the shared headers (`csrc/*.cuh`) and the flags, and loaded
+with ctypes.  Only sources in this
 repository are built; nothing is downloaded.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -41,8 +43,11 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
         return _LIBS[key]
     src = os.path.join(CSRC, f"{name}.cu")
     flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)

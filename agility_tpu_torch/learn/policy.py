@@ -27,7 +27,7 @@ class InferencePolicy(nn.Module):
         return self.ac.action_mean(obs, hist_encoding=True)
 
 
-def build_policy(env_cfg, state_dicts=None, device="cpu", seed: int = 0) -> InferencePolicy:
+def build_policy(env_cfg, state_dicts=None, device="cuda", seed: int = 0) -> InferencePolicy:
     """The BBC inference policy at the env config's widths; weights from
     `state_dicts` (io/checkpoint.params_from_jax) or, without them, drawn
     at random from `seed`."""

@@ -49,7 +49,7 @@ class TscPolicy(nn.Module):
         return env.step(state, self.bbc_act(state.obs_bbc_buf, next_commands))
 
 
-def build_tsc_policy(env_cfg, tsc_state_dicts=None, bbc_state_dict=None, device="cpu",
+def build_tsc_policy(env_cfg, tsc_state_dicts=None, bbc_state_dict=None, device="cuda",
                      seed: int = 0) -> TscPolicy:
     """The TSC teacher + frozen BBC at the env config's widths; weights from
     io/checkpoint.params_from_jax_tsc / load_bbc_frozen or, without them,

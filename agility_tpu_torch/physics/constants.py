@@ -76,7 +76,7 @@ class ModelConsts:
         return self.link_mass.dtype
 
     @staticmethod
-    def from_model(m: RobotModel, device="cpu", dtype=torch.float32) -> "ModelConsts":
+    def from_model(m: RobotModel, device="cuda", dtype=torch.float32) -> "ModelConsts":
         sl, sb, so, sr = m.sphere_arrays()
         jq = np.stack([_quat_from_mat_np(R) for R in m.joint_rot])
         f = lambda x: torch.as_tensor(np.asarray(x, np.float64), dtype=dtype, device=device)

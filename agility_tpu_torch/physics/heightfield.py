@@ -29,7 +29,7 @@ class HeightGrid(NamedTuple):
 
 
 def from_numpy(height_m: np.ndarray, hscale: float, origin_xy=(0.0, 0.0),
-               device="cpu", layer_id=None, lever=None, ceiling=None,
+               device="cuda", layer_id=None, lever=None, ceiling=None,
                ceiling_layer=None) -> HeightGrid:
     o = np.asarray(origin_xy, np.float32)   # f32-rounded, as the JAX grid stores it
     t = lambda x, dt: None if x is None else torch.as_tensor(np.asarray(x, dt), device=device)

@@ -17,8 +17,11 @@ Phases (any failure exits nonzero and prints no result line):
                warm-started from a nonzero lam0, and 10 sweeps cold.  Tolerance:
                max |kernel - plain| <= 1e-4 x max |plain| (float32, sums in
                another order); two calls on the same inputs give the same bits.
-               Each kernel is timed with the L2 warm across calls and with
-               the L2 flushed (a 256 MB write before each call); its bound is
+               Each kernel is timed with the L2 warm across calls (the
+               wrapper's host time included where the card waits for it) and
+               with the L2 flushed (a 256 MB write before each call, the card
+               kept busy while the host enqueues: the kernel's own time); its
+               bound is
                the larger of its bytes (each input read once, each output
                written once) over 3.35 TB/s and its flops over 67 TFLOP/s,
                and its share of the bound is taken from the flushed time.
@@ -30,11 +33,16 @@ Phases (any failure exits nonzero and prints no result line):
                under the windows > 0; and the BBC's rough grid (one surface, no
                weights), N = 4096 windows at the spawn points and, for every
                other env, anywhere on or off the map, so that origins clamp at
-               the edges.  The bytes count each distinct grid cell under the
-               windows once.
+               the edges.  Two calls give the same bits.  The bytes count each
+               distinct grid cell under the windows once; beside them, the
+               distinct 32-byte sectors those cells touch, per surface.  The
+               launch parameters and each surface's route (staged by TMA or
+               cp.async, or plain loads) are printed.
   4. K3      — the scandots against patch.measure_scandots_batch on that world,
-               N = 6144 scans of 132 points, window 34: exactly equal.  The
-               bytes count each distinct grid node the scans read once.
+               N = 6144 scans of 132 points, window 34: exactly equal, two calls
+               the same bits.  The bytes count each distinct grid node the scans
+               read once; sectors, launch parameters and routes (a gather)
+               as for K2.
   5. parity  — one BBC control step of a 64-env batch on the card against the
                same step on the CPU (plain versions), from one state.
   6. TSC parity — one TSC env step of 64 envs (8 courses) on the card against the
@@ -84,13 +92,16 @@ FLUSH_BYTES = 256 << 20     # written between flushed calls: five times the 50 M
 def cuda_ms(fn, reps=30, warmup=5, flush=False):
     """Median milliseconds of fn() on the card, CUDA events around each call.
     With `flush`, a 256 MB buffer is written before each call, so that its
-    inputs come from device memory and not from the L2."""
+    inputs come from device memory and not from the L2, and the card is kept
+    busy (torch.cuda._sleep) while the host enqueues the write and the call,
+    so that the events time the kernel and not the wrapper's host code."""
     buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda") if flush else None
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         if flush:
+            torch.cuda._sleep(1_000_000)
             buf.fill_(1)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
@@ -127,11 +138,16 @@ def fmt_times(r):
             f"({r['bound_by']}), share of bound {100 * r['share']:.1f}%")
 
 
-def distinct_cells(shape, rows, cols):
-    """Distinct cells of an (H, W) grid among index tensors rows, cols."""
-    mask = torch.zeros(shape, dtype=torch.bool, device=rows.device)
-    mask[rows, cols] = True
-    return int(mask.sum())
+def window_reads(grid, names, rows, cols):
+    """(distinct cells, {surface: distinct 32-byte sectors}) among the grid
+    cells at index tensors rows, cols (broadcast together), for each surface
+    in `names`: a reading of what the reads touch in memory beside the
+    bound's bytes (each surface starts 32-byte aligned)."""
+    W = grid.height.shape[1]
+    lin = torch.unique((rows * W + cols).reshape(-1))
+    sectors = {f: int(torch.unique(lin * getattr(grid, f).element_size() // 32).numel())
+               for f in names}
+    return int(lin.numel()), sectors
 
 
 def bbc_case(num_envs=NUM_ENVS, device="cuda"):
@@ -282,104 +298,160 @@ def course_case(n, seed=0):
     return grid, f32(c), f32(w), f32(scan_c), f32(pts[..., 0]), f32(pts[..., 1])
 
 
-def _surfaces(grid, names):
-    return [getattr(grid, f) for f in names if getattr(grid, f) is not None]
+def k2_cases(bbc, n=TSC_ENVS):
+    """K2's inputs at both paths' shapes, (label, grid, centres, size,
+    weights): the TSC's (course world, weights, ceiling, N = 6144 windows of
+    32 on goal waypoints) and the BBC's (`bbc`: its env and initial states;
+    one surface, no weights, every other centre anywhere on the map or up
+    to 1 m off it)."""
+    grid, c, w, _, _, _ = course_case(n)
+    env, s, params = bbc
+    bgrid, size = env.grid, env.engine_cfg.patch_size
+    H, W = bgrid.height.shape
+    bc = s.base_pos[:, :2].clone()
+    lo = torch.tensor(bgrid.origin, device=bc.device) - 1.0
+    span = torch.tensor([H, W], device=bc.device) * bgrid.hscale + 2.0
+    g = torch.Generator(device=bc.device).manual_seed(0)
+    bc[1::2] = lo + span * torch.rand(bc[1::2].shape, generator=g, device=bc.device)
+    return [("tsc", grid, c, 32, w), ("bbc", bgrid, bc.contiguous(), size, params.hf_weights)]
+
+
+def k2_reads(grid, ref, w):
+    """K2's reads from the plain version's patch `ref`: (distinct cells
+    under the windows, sectors per surface read, the surfaces read)."""
+    from agility_tpu_torch.kernels import terrain_window as k2
+
+    names, _ = k2.used_surfaces(grid, w)
+    ar = torch.arange(ref.values.shape[1], device=ref.x0.device)
+    cells, sectors = window_reads(grid, names, (ref.x0[:, None] + ar)[:, :, None],
+                                  (ref.y0[:, None] + ar)[:, None, :])
+    return cells, sectors, names
+
+
+def k2_moved(grid, c, w, out, cells, names):
+    """K2's bytes: each distinct cell of each surface read once, the
+    centres and weights read, the windows and origins written."""
+    per_cell = sum(getattr(grid, f).element_size() for f in names)
+    fields = ("values", "x0", "y0") + (("ceil",) if out.ceil is not None else ())
+    return cells * per_cell + nbytes(c, w, *(getattr(out, f) for f in fields))
 
 
 def _k2_check(label, grid, c, size, w):
     """K2 against its plain version on one input: exactly equal floor,
-    ceiling and origins.  Returns the plain version's patch and the row."""
+    ceiling and origins, two calls the same bits.  Returns the plain
+    version's patch and the row."""
     from agility_tpu_torch.kernels import terrain_window as k2
 
     got = k2.terrain_window(grid, c, size, w)
+    again = k2.terrain_window(grid, c, size, w)
     ref = k2.terrain_window_reference(grid, c, size, w)
     torch.cuda.synchronize()
     fields = ("values", "x0", "y0") + (("ceil",) if ref.ceil is not None else ())
     err = max(float((getattr(got, f) - getattr(ref, f)).abs().max()) for f in fields)
     same = all(torch.equal(getattr(got, f), getattr(ref, f)) for f in fields)
-    ar = torch.arange(ref.values.shape[1], device=c.device)
-    cells = distinct_cells(grid.height.shape, (ref.x0[:, None] + ar)[:, :, None],
-                           (ref.y0[:, None] + ar)[:, None, :])
-    # every surface the grid has is read (these inputs carry weights wherever
-    # the grid has lever and layer surfaces), once per distinct cell
-    per_cell = sum(t.element_size() for t in _surfaces(
-        grid, ("height", "lever", "layer_id", "ceiling", "ceiling_layer")))
-    moved = cells * per_cell + nbytes(c, w, *(getattr(got, f) for f in fields))
+    twice = all(torch.equal(getattr(got, f), getattr(again, f)) for f in fields)
+    cells, sectors, names = k2_reads(grid, ref, w)
     t = timed(lambda: k2.terrain_window(grid, c, size, w),
-              lambda: k2.terrain_window_reference(grid, c, size, w), moved)
+              lambda: k2.terrain_window_reference(grid, c, size, w),
+              k2_moved(grid, c, w, got, cells, names))
+    cfg = k2.device_launch_config(c.shape[0], ref.values.shape[1], grid, w, c.device)
     print(f"K2 {label}: N={c.shape[0]} windows of {size} on the {tuple(grid.height.shape)} "
-          f"grid, weights {None if w is None else tuple(w.shape)}; {cells} distinct cells "
-          f"under the windows ({per_cell} bytes each); max abs err {err:.3e}, exactly equal "
-          f"{same}; {fmt_times(t)}", flush=True)
+          f"grid, weights {None if w is None else tuple(w.shape)}; launch {cfg}; {cells} "
+          f"distinct cells under the windows, 32-byte sectors touched per surface {sectors}; "
+          f"max abs err {err:.3e}, exactly equal {same}, two calls bit-identical {twice}; "
+          f"{fmt_times(t)}", flush=True)
     if not same:
         raise SystemExit(f"K2 {label}: kernel differs from the plain version")
-    return ref, dict(max_abs_err=err, cells=cells, **t)
+    if not twice:
+        raise SystemExit(f"K2 {label}: two calls on the same inputs differ")
+    return ref, dict(max_abs_err=err, cells=cells, sectors=sectors, routes=cfg["routes"], **t)
 
 
-def phase_k2(bbc, n=TSC_ENVS):
+def phase_k2(bbc):
     """K2 at the TSC path's shape (course world, weights, ceiling) and at the
-    BBC path's (`bbc`: its env and initial states; one surface, no weights)."""
+    BBC path's (one surface, no weights, windows clamped at the map's edge)."""
     from agility_tpu_torch.physics import heightfield as hf
 
-    grid, c, w, _, _, _ = course_case(n)
     rows = {}
-    ref, rows["tsc"] = _k2_check("tsc", grid, c, 32, w)
-    ar = torch.arange(32, device="cuda")
-    ix, iy = (ref.x0[:, None] + ar)[:, :, None], (ref.y0[:, None] + ar)[:, None, :]
-    counts = dict(layer=int((grid.layer_id[ix, iy] != 0).sum()),
-                  lever=int((grid.lever[ix, iy] != 0).sum()),
-                  ceiling=int((grid.ceiling[ix, iy] < hf.NO_CEILING).sum()))
-    print(f"K2 tsc: cells under the windows {counts}", flush=True)
-    if min(counts.values()) == 0:
-        raise SystemExit("K2 tsc: the windows cover no layer, lever or ceiling cell")
-
-    env, s, params = bbc
-    grid, size = env.grid, env.engine_cfg.patch_size
-    H, W = grid.height.shape
-    c = s.base_pos[:, :2].clone()
-    # every other env anywhere on the map or up to 1 m off it
-    lo = torch.tensor(grid.origin, device=c.device) - 1.0
-    span = torch.tensor([H, W], device=c.device) * grid.hscale + 2.0
-    g = torch.Generator(device=c.device).manual_seed(0)
-    c[1::2] = lo + span * torch.rand(c[1::2].shape, generator=g, device=c.device)
-    ref, rows["bbc"] = _k2_check("bbc", grid, c.contiguous(), size, params.hf_weights)
-    clamped = int(((ref.x0 == 0) | (ref.x0 == H - size) | (ref.y0 == 0)
-                   | (ref.y0 == W - size)).sum())
-    print(f"K2 bbc: {clamped} windows clamped at the map's edge", flush=True)
-    if clamped == 0:
-        raise SystemExit("K2 bbc: no window clamps at the map's edge")
+    for label, grid, c, size, w in k2_cases(bbc):
+        ref, rows[label] = _k2_check(label, grid, c, size, w)
+        ar = torch.arange(size, device="cuda")
+        ix, iy = (ref.x0[:, None] + ar)[:, :, None], (ref.y0[:, None] + ar)[:, None, :]
+        if label == "tsc":
+            counts = dict(layer=int((grid.layer_id[ix, iy] != 0).sum()),
+                          lever=int((grid.lever[ix, iy] != 0).sum()),
+                          ceiling=int((grid.ceiling[ix, iy] < hf.NO_CEILING).sum()))
+            print(f"K2 tsc: cells under the windows {counts}", flush=True)
+            if min(counts.values()) == 0:
+                raise SystemExit("K2 tsc: the windows cover no layer, lever or ceiling cell")
+        else:
+            H, W = grid.height.shape
+            clamped = int(((ref.x0 == 0) | (ref.x0 == H - size) | (ref.y0 == 0)
+                           | (ref.y0 == W - size)).sum())
+            print(f"K2 bbc: {clamped} windows clamped at the map's edge", flush=True)
+            if clamped == 0:
+                raise SystemExit("K2 bbc: no window clamps at the map's edge")
     return rows
 
 
-def phase_k3(n=TSC_ENVS):
+def k3_case(n=TSC_ENVS):
+    """K3's inputs at the TSC path's shape: (grid, scan centres, window 34,
+    weights, px, py) on the course world."""
+    grid, _, w, sc, px, py = course_case(n)
+    return grid, sc, 34, w, px, py
+
+
+def k3_reads(grid, args):
+    """K3's reads: (distinct nodes read, sectors per surface, the surfaces
+    read, the scans' floor nodes (rows, cols))."""
     from agility_tpu_torch.kernels import scandots as k3
     from agility_tpu_torch.physics import patch as pt
 
-    grid, _, w, sc, px, py = course_case(n)
-    got = k3.scandots(grid, sc, 34, w, px, py)
-    ref = k3.scandots_reference(grid, sc, 34, w, px, py)
+    g, sc, size, w, px, py = args
+    r, col = pt.scandot_nodes(g, sc, size, px, py)
+    names, _ = k3.used_surfaces(g, w)
+    # each point reads its node and the +x and +y neighbours
+    cells, sectors = window_reads(g, names, torch.stack([r, r + 1, r]),
+                                  torch.stack([col, col, col + 1]))
+    return cells, sectors, names, (r, col)
+
+
+def k3_moved(args, out, cells, names):
+    """K3's bytes: each distinct node of each surface read once, the
+    centres, weights and points read, the scandots written."""
+    g, sc, _, w, px, py = args
+    return cells * sum(getattr(g, f).element_size() for f in names) + nbytes(sc, w, px, py, out)
+
+
+def phase_k3():
+    from agility_tpu_torch.kernels import scandots as k3
+
+    args = k3_case()
+    grid, sc, size, w, px, py = args
+    got = k3.scandots(*args)
+    again = k3.scandots(*args)
+    ref = k3.scandots_reference(*args)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    same = torch.equal(got, ref)
-    r, col = pt.scandot_nodes(grid, sc, 34, px, py)
+    same, twice = torch.equal(got, ref), torch.equal(got, again)
+    cells, sectors, names, (r, col) = k3_reads(grid, args)
     counts = dict(layer=int((grid.layer_id[r, col] != 0).sum()),
                   lever=int((grid.lever[r, col] != 0).sum()))
-    # each point reads its node and the +x and +y neighbours of the floor
-    # surfaces, once per distinct node
-    cells = distinct_cells(grid.height.shape, torch.stack([r, r + 1, r]),
-                           torch.stack([col, col, col + 1]))
-    per_cell = sum(t.element_size() for t in _surfaces(grid, ("height", "lever", "layer_id")))
-    t = timed(lambda: k3.scandots(grid, sc, 34, w, px, py),
-              lambda: k3.scandots_reference(grid, sc, 34, w, px, py),
-              cells * per_cell + nbytes(sc, w, px, py, got))
-    print(f"K3: N={n} scans x {px.shape[1]} points, window 34, floor nodes on {counts}; "
-          f"{cells} distinct nodes read ({per_cell} bytes each); max abs err {err:.3e}, "
-          f"exactly equal {same}; {fmt_times(t)}", flush=True)
+    t = timed(lambda: k3.scandots(*args), lambda: k3.scandots_reference(*args),
+              k3_moved(args, got, cells, names))
+    cfg = dict(k3.launch_config(sc.shape[0], px.shape[1], size),
+               routes={s: k3.ROUTE for s in names})
+    print(f"K3: N={sc.shape[0]} scans x {px.shape[1]} points, window {size}, floor nodes on "
+          f"{counts}; launch {cfg}; {cells} distinct nodes read, 32-byte sectors touched per "
+          f"surface {sectors}; max abs err {err:.3e}, exactly equal {same}, two calls "
+          f"bit-identical {twice}; {fmt_times(t)}", flush=True)
     if not same:
         raise SystemExit("K3: kernel differs from the plain version")
+    if not twice:
+        raise SystemExit("K3: two calls on the same inputs differ")
     if min(counts.values()) == 0:
         raise SystemExit("K3: the scans cross no layer or lever cell")
-    return {"tsc": dict(max_abs_err=err, cells=cells, **t)}
+    return {"tsc": dict(max_abs_err=err, cells=cells, sectors=sectors, routes=cfg["routes"], **t)}
 
 
 def phase_parity(num_envs=64):
@@ -614,7 +686,8 @@ def main():
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(v["max_abs_err"] for v in r.values()),
             **{k: r[head][k] for k in keys}, library_ms=None,
-            by_shape={shape: {k: v[k] for k in keys} for shape, v in r.items()}))
+            by_shape={shape: {k: v[k] for k in keys + ("sectors", "routes") if k in v}
+                      for shape, v in r.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,334 @@
+"""The hand-written kernels K1 (contact LCP), K2 (terrain window) and K3
+(scandots), timed on one card against the same kernels of another checkout
+(the parent commit's), on the same inputs, in turns.
+
+    mkdir -p build/parent && git archive <parent> agility_tpu_torch | tar -x -C build/parent
+    python3 kernel_bench.py --parent build/parent --trace    # needs one CUDA card
+    python3 kernel_bench.py --kernels k2,k3                   # this checkout alone
+
+Builds every kernel, each from its own checkout's csrc/ into that checkout's
+build/kernels/, makes the inputs as chip_smoke.py does (K1 at the BBC shape,
+N = 4096, S = 24, and the TSC shape, N = 6144, S = 28 with ceiling rows
+active, warm-started with 5 sweeps and cold with 10; K2 at the TSC shape,
+N = 6144 windows of 32 on the 64-course world with weights and the
+ceiling, and the BBC shape, N = 4096 windows of 24 on the rough grid; K3 at
+the TSC shape, N = 6144 scans of 132 points, window 34), holds every
+version to the plain one (K1 within 1e-4 of max |lam|, K2 and K3 exactly),
+and times each four ways, in the order parent, this, this, parent:
+  warm_ms     chip_smoke.py's reading: CUDA events around one call, the L2
+              warm across calls (includes the wrapper's host time where the
+              card waits for it)
+  lead_ms     the same with the card kept busy (torch.cuda._sleep) while the
+              host enqueues the call: the kernel's own time, L2 warm
+  flushed_ms  a 256 MB write before each call, so that the inputs come from
+              device memory, the card kept busy while the host enqueues (the
+              kernel's own time); the share of the bound is taken from it
+  host_ms     the wrapper's own time on the host: the host clock over 40
+              calls enqueued behind a sleeping card, per call, the median
+              of 7 such batches
+K2 is also timed in its other design, in the order parent, this, other,
+other, this, parent: one block per env with plain loads (the route it takes
+where W % 4 != 0).  With --trace it also runs this checkout's K1 built with
+-DK1_TRACE and K2 built with -DWINDOW_TRACE once per shape, flushed, and
+reports where the blocks' time goes: when each block's first env landed
+and when it ended (percentiles over the grid, ns from the first block's
+start), and per env the ns a block spent waiting for its copy and computing
+(K1: moving the stage into registers, sweeping; K2: folding, storing).
+Prints one JSON line and writes it to chiprun_out/kernel_bench.json.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+import types
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+TRACE_BLOCKS, K1_SLOTS, WINDOW_SLOTS = 1024, 7, 7
+
+
+def load_kernel(root: str, tag: str, name: str):
+    """(kernels/<name> module, kernels/build module) of the checkout at
+    `root`, the former bound to the latter (its csrc/, its build/kernels/)."""
+    def load(mod, path):
+        spec = importlib.util.spec_from_file_location(f"{tag}_{mod}", path)
+        m = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(m)
+        return m
+
+    kdir = os.path.join(os.path.abspath(root), "agility_tpu_torch", "kernels")
+    build = load("build", os.path.join(kdir, "build.py"))
+    mod = load(name, os.path.join(kdir, f"{name}.py"))
+    mod.build = build            # its _lib() looks `build` up when it is called
+    return mod, build
+
+
+def variant(name: str, tag: str, lib):
+    """A copy of this checkout's kernels/<name> module whose kernel library
+    is `lib` (a build with other macros)."""
+    mod, _ = load_kernel(ROOT, tag, name)
+    mod.build = types.SimpleNamespace(load=lambda *_: lib)
+    return mod
+
+
+def direct_k2():
+    """This checkout's K2 module made to launch its one-block-per-env design
+    (the route it takes where W % 4 != 0) on any grid."""
+    mod, _ = load_kernel(ROOT, "direct", "terrain_window")
+
+    def config(N, P, W, surfaces, dev):
+        # the parameters of a grid one column wider: W % 4 != 0 takes the direct design
+        return mod.launch_config(N, P, W + 1, surfaces, 1, 1)
+
+    mod._config = config
+    return mod
+
+
+def lead_ms(fn, reps=30, warmup=5):
+    """Median milliseconds of fn() on the card with the card busy while the
+    host enqueues it, so the events time the kernel and not the host."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def host_ms(fn, batches=7, reps=40, warmup=5):
+    """Host milliseconds per call of fn(), the median over `batches` batches
+    of `reps` calls enqueued behind a sleeping card, so that the host clock
+    reads the wrapper's work alone."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / reps)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def read_trace(fn, read, grid, slots):
+    """One flushed call of a traced kernel, then its per-block stamps
+    (grid blocks, at most TRACE_BLOCKS) as an int64 array."""
+    cs.cuda_ms(fn, reps=1, warmup=1, flush=True)
+    buf = (ctypes.c_ulonglong * (TRACE_BLOCKS * slots))()
+    if read(ctypes.cast(buf, ctypes.c_void_p)) != 0:
+        raise SystemExit("kernel_bench: reading the trace failed")
+    return np.array(buf, dtype=np.int64).reshape(TRACE_BLOCKS, slots)[:min(grid, TRACE_BLOCKS)]
+
+
+def phases(t, names):
+    """Percentiles of when blocks' first env landed and when they ended, and
+    the ns per env of each accumulated phase (slots 3.. named `names`)."""
+    start = t[:, 0].min()
+    pct = lambda x: [float(np.percentile(x, p)) for p in (0, 10, 50, 90, 100)]
+    envs = max(int(t[:, 6].sum()), 1)
+    return dict(blocks=len(t), first_landed_ns=pct(t[:, 1] - start), end_ns=pct(t[:, 2] - start),
+                per_env_ns={n: float(t[:, 3 + i].sum()) / envs for i, n in enumerate(names)})
+
+
+def time_turns(row, versions, order, fn_of):
+    """Warm, lead and flushed times of each version, in `order`."""
+    for name in versions:
+        row[name] = dict(warm_ms=[], lead_ms=[], flushed_ms=[], host_ms=[])
+    for name in order:
+        fn = fn_of(versions[name])
+        r = row[name]
+        r["warm_ms"].append(cs.cuda_ms(fn))
+        r["lead_ms"].append(lead_ms(fn))
+        r["flushed_ms"].append(cs.cuda_ms(fn, flush=True))
+        r["host_ms"].append(host_ms(fn))
+    for name in versions:
+        row[name]["share"] = row["bound_ms"] / float(np.mean(row[name]["flushed_ms"]))
+    if "parent" in versions:
+        row["speedup_flushed"] = (float(np.mean(row["parent"]["flushed_ms"]))
+                                  / float(np.mean(row["this"]["flushed_ms"])))
+
+
+def with_variant(order, name):
+    """`order` with this checkout's two turns made this, `name`, `name`,
+    this."""
+    inner = ["this", name, name, "this"]
+    return order[:1] + inner + order[-1:] if order[0] == "parent" else inner
+
+
+def summary(label, row, versions):
+    return (f"{label}: bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            + "; ".join(f"{n} warm {row[n]['warm_ms']} lead {row[n]['lead_ms']} flushed "
+                        f"{row[n]['flushed_ms']} host {row[n]['host_ms']} ms, share "
+                        f"{100 * row[n]['share']:.1f}%"
+                        for n in versions)
+            + (f"; trace {row['trace']}" if "trace" in row else ""))
+
+
+def bench_k1(opts, order, bbc, tsc):
+    from agility_tpu_torch.kernels import contact_lcp as k1
+
+    versions = {"this": k1}
+    if opts.parent:
+        versions["parent"], _ = load_kernel(opts.parent, "parent", "contact_lcp")
+    if opts.trace:
+        _, bt = load_kernel(ROOT, "traced", "contact_lcp")
+        k1t = variant("contact_lcp", "traced", bt.load("contact_lcp", ("K1_TRACE",)))
+    rows = {}
+    for path, env, s, params in (("bbc", *bbc), ("tsc", *tsc)):
+        for mode, warm, iters in (("warm", True, 5), ("cold", False, 10)):
+            label = f"{path} {mode}"
+            a = cs.k1_inputs(env, s, params, warm)
+            kw = dict(iters=iters, relax=0.6)
+            ref = k1.contact_lcp_reference(*a, **kw)
+            N, M = a[1].shape
+            bound_ms, by = cs.bound(cs.nbytes(*a, ref), 2 * iters * N * M * M)
+            row = dict(N=N, S=M // 3, iters=iters, bytes=cs.nbytes(*a, ref), bound_ms=bound_ms,
+                       bound_by=by, launch=k1.device_launch_config(N, M // 3, a[0].device))
+            for name, mod in versions.items():
+                out = mod.contact_lcp(*a, **kw)
+                torch.cuda.synchronize()
+                rel = float((out - ref).abs().max()) / float(ref.abs().max())
+                if not rel <= cs.K1_RTOL:
+                    raise SystemExit(f"K1 {label} ({name}): rel err {rel:.3e} over {cs.K1_RTOL}")
+            time_turns(row, versions, order, lambda mod: lambda: mod.contact_lcp(*a, **kw))
+            if opts.trace:
+                t = read_trace(lambda: k1t.contact_lcp(*a, **kw),
+                               k1t.build.load().contact_lcp_trace, row["launch"]["grid"], K1_SLOTS)
+                row["trace"] = phases(t, ("wait", "load", "sweeps"))
+            rows[label] = row
+            print(summary(f"K1 {label} N={N} S={M // 3} iters={iters}", row, versions),
+                  flush=True)
+    return rows
+
+
+def bench_k2(opts, order, bbc):
+    from agility_tpu_torch.kernels import build
+    from agility_tpu_torch.kernels import terrain_window as k2
+
+    versions = {"this": k2, "direct": direct_k2()}
+    if opts.parent:
+        versions["parent"], _ = load_kernel(opts.parent, "parent", "terrain_window")
+    if opts.trace:
+        k2t = variant("terrain_window", "traced", build.load("terrain_window", ("WINDOW_TRACE",)))
+    rows = {}
+    for label, grid, c, size, w in cs.k2_cases(bbc):
+        ref = k2.terrain_window_reference(grid, c, size, w)
+        cells, sectors, names = cs.k2_reads(grid, ref, w)
+        moved = cs.k2_moved(grid, c, w, ref, cells, names)
+        bound_ms, by = cs.bound(moved)
+        P = ref.values.shape[1]
+        cfg = k2.device_launch_config(c.shape[0], P, grid, w, c.device)
+        row = dict(N=c.shape[0], P=size, bytes=moved, cells=cells, sectors=sectors,
+                   bound_ms=bound_ms, bound_by=by, launch=cfg,
+                   direct_launch=versions["direct"].device_launch_config(c.shape[0], P, grid, w,
+                                                                        c.device))
+        if row["direct_launch"]["staged"]:
+            raise SystemExit(f"K2 {label}: the direct variant would launch the staged design")
+        fields = ("values", "x0", "y0") + (("ceil",) if ref.ceil is not None else ())
+        for name, mod in versions.items():
+            got = mod.terrain_window(grid, c, size, w)
+            torch.cuda.synchronize()
+            if not all(torch.equal(getattr(got, f), getattr(ref, f)) for f in fields):
+                raise SystemExit(f"K2 {label} ({name}): differs from the plain version")
+        time_turns(row, versions, with_variant(order, "direct"),
+                   lambda mod: lambda: mod.terrain_window(grid, c, size, w))
+        if opts.trace:
+            t = read_trace(lambda: k2t.terrain_window(grid, c, size, w),
+                           k2t.build.load().terrain_window_trace, cfg["grid"], WINDOW_SLOTS)
+            row["trace"] = phases(t, ("wait", "fold", "store"))
+        rows[label] = row
+        print(summary(f"K2 {label} N={c.shape[0]} P={size} launch {cfg}", row, versions),
+              flush=True)
+    return rows
+
+
+def bench_k3(opts, order):
+    from agility_tpu_torch.kernels import scandots as k3
+
+    versions = {"this": k3}
+    if opts.parent:
+        versions["parent"], _ = load_kernel(opts.parent, "parent", "scandots")
+    args = cs.k3_case()
+    g, sc, size, w, px, py = args
+    ref = k3.scandots_reference(*args)
+    cells, sectors, names, _ = cs.k3_reads(g, args)
+    moved = cs.k3_moved(args, ref, cells, names)
+    bound_ms, by = cs.bound(moved)
+    N, K = px.shape
+    cfg = k3.launch_config(N, K, size)
+    row = dict(N=N, K=K, P=size, bytes=moved, cells=cells, sectors=sectors, bound_ms=bound_ms,
+               bound_by=by, launch=cfg)
+    for name, mod in versions.items():
+        got = mod.scandots(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise SystemExit(f"K3 ({name}): differs from the plain version")
+    time_turns(row, versions, order, lambda mod: lambda: mod.scandots(*args))
+    print(summary(f"K3 tsc N={N} K={K} window {size} launch {cfg}", row, versions), flush=True)
+    return {"tsc": row}
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("kernel_bench: torch.cuda.is_available() is false; this needs a CUDA card")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default="k1,k2,k3", help="which of k1, k2, k3 to time")
+    ap.add_argument("--parent", help="a checkout whose kernels to time beside this one's")
+    ap.add_argument("--trace", action="store_true", help="phase breakdown of this checkout's")
+    opts = ap.parse_args()
+    kernels = set(opts.kernels.split(","))
+    if not kernels <= {"k1", "k2", "k3"}:
+        sys.exit(f"kernel_bench: --kernels takes k1, k2, k3; got {opts.kernels}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from agility_tpu_torch.kernels import build
+
+    names = dict(k1="contact_lcp", k2="terrain_window", k3="scandots")
+    builds = [("this", build)]
+    if opts.parent:
+        builds.append(("parent", load_kernel(opts.parent, "parent", "contact_lcp")[1]))
+    for tag, b in builds:
+        for k in sorted(kernels):
+            b.load(names[k])
+            print(f"ptxas {names[k]} ({tag}):\n"
+                  f"{b.ptxas_info.get(names[k], 'already built').strip()}", flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    order = ["parent", "this", "this", "parent"] if opts.parent else ["this", "this"]
+    result = dict(card=card, order=order)
+    bbc = cs.bbc_case() if kernels & {"k1", "k2"} else None
+    if "k1" in kernels:
+        result["k1"] = bench_k1(opts, order, bbc, cs.tsc_case())
+    if "k2" in kernels:
+        result["k2"] = bench_k2(opts, order, bbc)
+    if "k3" in kernels:
+        result["k3"] = bench_k3(opts, order)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "kernel_bench.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

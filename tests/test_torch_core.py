@@ -45,7 +45,7 @@ def test_go2_model_matches():
 
 
 def test_model_consts_match():
-    jm, tm = JMC.from_model(J_MODEL), ModelConsts.from_model(T_MODEL)
+    jm, tm = JMC.from_model(J_MODEL), ModelConsts.from_model(T_MODEL, "cpu")
     for f in ("parent", "joint_pos", "joint_quat", "joint_axis", "link_mass", "link_com",
               "link_inertia", "dof_link", "dof_limit_lower", "dof_limit_upper",
               "dof_effort_limit", "dof_velocity_limit", "default_dof_pos", "body_link",
@@ -108,7 +108,7 @@ def test_soa_quat_helpers_match(rng, name):
 def _grids(rng):
     h = (0.08 * rng.normal(size=(48, 40))).astype(np.float32)
     return (jhf.from_numpy(h, 0.05, origin_xy=(-1.2, -1.0)),
-            thf.from_numpy(h, 0.05, origin_xy=(-1.2, -1.0)))
+            thf.from_numpy(h, 0.05, origin_xy=(-1.2, -1.0), device="cpu"))
 
 
 @pytest.mark.parametrize("fn", ["sample_height", "sample_height_min3", "sample_normal"])

@@ -15,7 +15,7 @@ from agility_tpu_torch.kernels import terrain_window as k2
 from agility_tpu_torch.physics import engine as teng
 from agility_tpu_torch.physics import soa as tsoa
 from torch_cases import (N, S, batch_case, contact_case, k1_args, layered_case, model_consts,
-                         random_contact_problem)
+                         random_contact_problem, window_case)
 
 
 @pytest.fixture
@@ -108,3 +108,66 @@ def test_scandots_kernel_matches_reference(card):
         torch.cuda.synchronize()
         assert k3.scandots.launches == before + 1
         assert torch.equal(got, k3.scandots_reference(grid, c, 34, wt, px, py))
+
+
+def _grid_variants(grid, w):
+    """(grid, weights) cases: every surface with weights, without weights,
+    floor only, and weights on a grid with no ceiling."""
+    return ((grid, w), (grid, None),
+            (grid._replace(layer_id=None, lever=None, ceiling=None, ceiling_layer=None), None),
+            (grid._replace(ceiling=None, ceiling_layer=None), w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 130])
+@pytest.mark.parametrize("p", [5, 24, 32, 34])
+@pytest.mark.parametrize("n", [1, 7, 1000])
+def test_terrain_window_kernel_edge_shapes(card, n, p, W):
+    """K2 against its plain version, exactly, where the persistent grid is
+    larger than N (1, 7) or does not divide it (1000), at odd and even P (4
+    floats or a float4 a thread), on both designs (W = 128: staged, TMA and
+    cp.async; W = 130: one block per env, plain loads), with windows clamped
+    at every edge; two calls give the same bits."""
+    grid, c, w, _, _ = window_case(n, W, seed=n + p + W, device="cuda")
+    for g, wt in _grid_variants(grid, w):
+        cfg = k2.device_launch_config(n, p, g, wt, c.device)
+        assert cfg["routes"]["height"] == ("tma" if W % 4 == 0 else "plain")
+        got = k2.terrain_window(g, c, p, wt)
+        again = k2.terrain_window(g, c, p, wt)
+        ref = k2.terrain_window_reference(g, c, p, wt)
+        torch.cuda.synchronize()
+        for f in ("values", "x0", "y0") + (("ceil",) if g.ceiling is not None else ()):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+            assert torch.equal(getattr(got, f), getattr(again, f)), f
+    if n >= 8:
+        assert {0, 96 - p}.issubset(set(ref.x0.tolist()))
+        assert {0, W - p}.issubset(set(ref.y0.tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 130])
+@pytest.mark.parametrize("p", [5, 24, 32, 34])
+@pytest.mark.parametrize("n", [1, 7, 1000])
+def test_scandots_kernel_edge_shapes(card, n, p, W):
+    """K3 against its plain version, exactly, at the same shapes and grids
+    as K2's edge test, scans clamped at every edge, N not a multiple of the
+    8 envs a block; two calls give the same bits."""
+    grid, c, w, px, py = window_case(n, W, seed=n + p + W, device="cuda")
+    for g, wt in _grid_variants(grid, w):
+        assert k3.launch_config(n, px.shape[1], p)["grid"] == -(-n // k3.ENVS_PER_BLOCK)
+        got = k3.scandots(g, c, p, wt, px, py)
+        again = k3.scandots(g, c, p, wt, px, py)
+        ref = k3.scandots_reference(g, c, p, wt, px, py)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 33, 300])
+def test_scandots_kernel_point_groups(card, k):
+    """K3 against its plain version, exactly, with one point, a warp's
+    worth and more than a warp's group of 160 (a second block along y)."""
+    grid, c, w, px, py = window_case(7, 128, seed=k, device="cuda", k=k)
+    assert torch.equal(k3.scandots(grid, c, 34, w, px, py),
+                       k3.scandots_reference(grid, c, 34, w, px, py))

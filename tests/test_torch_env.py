@@ -20,21 +20,29 @@ import torch
 
 from agility_tpu.envs import go2_locomotion as jenv
 from agility_tpu.envs import mocap as jmocap
-from agility_tpu.envs.config import DomainRandCfg, EnvCfg, Go2LocomotionCfg, NoiseCfg
+from agility_tpu.envs import config as jcfg
+from agility_tpu_torch.envs import config as tcfg
 from agility_tpu_torch.envs import go2_locomotion as tenv
 from agility_tpu_torch.envs import mocap as tmocap
 from agility_tpu_torch.physics import heightfield as thf
 
 N = 4
-CFG = Go2LocomotionCfg(
-    env=EnvCfg(num_envs=N),
-    domain_rand=DomainRandCfg(push_robots=False, action_delay=False),
-    noise=NoiseCfg(add_noise=False))
+
+
+def _cfg(m):
+    """The test's config from config module `m` (the JAX package's or the port's)."""
+    return m.Go2LocomotionCfg(
+        env=m.EnvCfg(num_envs=N),
+        domain_rand=m.DomainRandCfg(push_robots=False, action_delay=False),
+        noise=m.NoiseCfg(add_noise=False))
+
+
+CFG, TCFG = _cfg(jcfg), _cfg(tcfg)
 
 
 @pytest.fixture(scope="module")
 def envs():
-    return jenv.Go2LocomotionEnv(CFG), tenv.Go2LocomotionEnv(CFG, "cpu")
+    return jenv.Go2LocomotionEnv(CFG), tenv.Go2LocomotionEnv(TCFG, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -52,7 +60,7 @@ def step_pair(envs):
             s1, out = je.step(s0, jnp.asarray(acts))
     finally:
         mp.undo()
-    t1, tout = te.step(tenv.state_from_jax(s0), torch.as_tensor(acts))
+    t1, tout = te.step(tenv.state_from_jax(s0, "cpu"), torch.as_tensor(acts))
     return s1, out, t1, tout
 
 
@@ -125,10 +133,11 @@ def test_synthetic_mocap_matches(envs):
     np.testing.assert_allclose(
         tm.frames_at(torch.as_tensor(clip), torch.as_tensor(t)).numpy(),
         np.asarray(jm._frames_at(jnp.asarray(clip), jnp.asarray(t))), atol=1e-5)
-    osc = CFG.normalization.obs_scales
     np.testing.assert_allclose(
-        tmocap.disc_obs_from_frames(tm.frames, te.mc.default_dof_pos, osc).numpy(),
-        np.asarray(jmocap.disc_obs_from_frames(jm.frames, je.mc.default_dof_pos, osc)),
+        tmocap.disc_obs_from_frames(tm.frames, te.mc.default_dof_pos,
+                                    TCFG.normalization.obs_scales).numpy(),
+        np.asarray(jmocap.disc_obs_from_frames(jm.frames, je.mc.default_dof_pos,
+                                               CFG.normalization.obs_scales)),
         atol=1e-5)
 
 

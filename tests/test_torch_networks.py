@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from agility_tpu.envs.config import Go2LocomotionCfg
 from agility_tpu.learn import networks as jnets
+from agility_tpu_torch.envs.config import Go2LocomotionCfg
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.learn import networks as tnets
 from agility_tpu_torch.learn.policy import InferencePolicy, build_policy
@@ -52,7 +52,7 @@ def test_policy_actions_match_flax(trees, rng):
     o2 = o.at[:, slices.explicit].set(pred)
     want = ac.apply(ref["ac_params"], o2, method="action_mean", hist_encoding=True)
 
-    policy = build_policy(Go2LocomotionCfg(), ckpt.params_from_jax(got))
+    policy = build_policy(Go2LocomotionCfg(), ckpt.params_from_jax(got), "cpu")
     t = torch.as_tensor(obs)
     np.testing.assert_allclose(policy(t).numpy(), np.asarray(want), atol=2e-5)
     # the pieces: both latents, the privileged-latent actor and the critic
@@ -68,7 +68,7 @@ def test_policy_actions_match_flax(trees, rng):
 
 
 def test_random_policy_is_seeded():
-    a, b = build_policy(Go2LocomotionCfg(), seed=3), build_policy(Go2LocomotionCfg(), seed=3)
+    a, b = (build_policy(Go2LocomotionCfg(), device="cpu", seed=3) for _ in range(2))
     for (k, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
         torch.testing.assert_close(x, y, rtol=0, atol=0, msg=k)
     assert isinstance(a, InferencePolicy) and isinstance(a.ac, tnets.ActorCritic)

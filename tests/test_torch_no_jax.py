@@ -1,7 +1,8 @@
-"""The port runs where jax and flax are not installed: a fresh interpreter
-with both blocked imports every module of agility_tpu_torch and
-chip_smoke.py, then takes two env steps of 2 envs on the CPU; a second one
-plays two hierarchical TSC steps of 2 envs on a 2-course world."""
+"""The port runs where jax and flax are not installed, and without the JAX
+package: a fresh interpreter with jax, flax and agility_tpu blocked imports
+every module of agility_tpu_torch, chip_smoke.py, kernel_bench.py and
+profile_slice.py, then takes two env steps of 2 envs on the CPU; a second
+one plays two hierarchical TSC steps of 2 envs on a 2-course world."""
 import os
 import subprocess
 import sys
@@ -11,23 +12,24 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
-    sys.modules["jax"] = sys.modules["flax"] = None     # any import of them now fails
+    # any import of them now fails
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["agility_tpu"] = None
     import torch
     import agility_tpu_torch
     for m in pkgutil.walk_packages(agility_tpu_torch.__path__, "agility_tpu_torch."):
         importlib.import_module(m.name)
-    import chip_smoke
-    from agility_tpu.envs.config import Go2LocomotionCfg, EnvCfg
+    import chip_smoke, kernel_bench, profile_slice
+    from agility_tpu_torch.envs.config import Go2LocomotionCfg, EnvCfg
     from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
     from agility_tpu_torch.learn.policy import build_policy
     cfg = Go2LocomotionCfg(env=EnvCfg(num_envs=2))
     env = Go2LocomotionEnv(cfg, "cpu")
-    policy = build_policy(cfg)
+    policy = build_policy(cfg, device="cpu")
     s = env.init_state()
     for _ in range(2):
         s, out = env.step(s, policy(s.obs_buf))
     assert s.obs_buf.shape == (2, 671) and bool(torch.isfinite(s.obs_buf).all())
-    assert not any(k == "jax" or k.startswith(("jax.", "flax"))
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "agility_tpu."))
                    for k, v in sys.modules.items() if v is not None)
     print("ok")
 """)
@@ -35,14 +37,14 @@ SCRIPT = textwrap.dedent("""
 
 TSC_SCRIPT = textwrap.dedent("""
     import sys
-    sys.modules["jax"] = sys.modules["flax"] = None
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["agility_tpu"] = None
     import torch
     from agility_tpu_torch.cli import play_tsc
     res = play_tsc.run(play_tsc.get_args(["--device", "cpu", "--num_envs", "2",
                                           "--courses", "2", "--steps", "2"]))
     assert res["state"].obs_buf.shape == (2, 800)
     assert bool(torch.isfinite(res["state"].obs_buf).all())
-    assert not any(k == "jax" or k.startswith(("jax.", "flax"))
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "agility_tpu."))
                    for k, v in sys.modules.items() if v is not None)
     print("ok")
 """)

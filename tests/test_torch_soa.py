@@ -33,7 +33,7 @@ from agility_tpu_torch.physics import soa as tsoa
 from agility_tpu_torch.physics.constants import ModelConsts
 
 JMC_ = JMC.from_model(j_build())
-TMC = ModelConsts.from_model(build_go2_model())
+TMC = ModelConsts.from_model(build_go2_model(), "cpu")
 JC, TC = jsoa.consts_of(JMC_), tsoa.consts_of(TMC)
 N = 4
 GRAV = (0.0, 0.0, -9.81)
@@ -199,7 +199,7 @@ def _rough():
     rng = np.random.default_rng(7)
     h = (0.08 * rng.normal(size=(48, 48))).astype(np.float32)
     return (jhf.from_numpy(h, 0.05, origin_xy=(-1.2, -1.2)),
-            thf.from_numpy(h, 0.05, origin_xy=(-1.2, -1.2)))
+            thf.from_numpy(h, 0.05, origin_xy=(-1.2, -1.2), device="cpu"))
 
 
 def _step_inputs(rng):

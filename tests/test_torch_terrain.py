@@ -52,7 +52,7 @@ def _surfaces(rng, ceiling=True):
 def _grids(rng, ceiling=True):
     s = _surfaces(rng, ceiling)
     return (jhf.from_numpy(hscale=0.05, origin_xy=(-1.0, -1.0), **s),
-            thf.from_numpy(hscale=0.05, origin_xy=(-1.0, -1.0), **s))
+            thf.from_numpy(hscale=0.05, origin_xy=(-1.0, -1.0), device="cpu", **s))
 
 
 def _centers(rng, n=N):
@@ -172,7 +172,7 @@ def test_measure_scandots_matches_pallas_kernel(world, monkeypatch):
     kw = dict(hscale=world.hscale, origin_xy=world.origin, layer_id=world.layer_id,
               lever=world.lever)
     jg = jwin.attach_bands(jhf.from_numpy(world.height, **kw), scan_size=34)
-    tg = thf.from_numpy(world.height, **kw)
+    tg = thf.from_numpy(world.height, device="cpu", **kw)
     c = world.goals[:, :, :2].reshape(-1, 2).astype(np.float32)[:16]
     n = c.shape[0]
     w = np.stack([rng.uniform(0.05, 0.2, n), rng.uniform(0.4, 0.55, n),
@@ -211,3 +211,69 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu(rng):
     for mod in (k2, k3):
         assert mod.TPU_KERNEL.startswith("agility_tpu/physics/windows.py:")
         assert mod.SOURCE.startswith("agility_tpu_torch/csrc/")
+
+
+_ALL = ("height", "lever", "layer_id", "ceiling", "ceiling_layer")
+
+
+def _check_ring(cfg, P, W, surfaces, n, sms, per_sm):
+    """The rules the window kernels' launchers check again for the staged
+    design: boxes of whole 16-byte rows wide enough to start at column
+    y0 & ~3; float32 surfaces by TMA (whose row pitch must be a multiple of
+    16 bytes), the int8 tags by cp.async words; 128-byte box slots; the
+    shared memory within what a block can use; the persistent grid."""
+    bw = cfg["bw"]
+    assert P + 3 <= bw < P + 7 and (4 * bw) % 16 == 0 and (4 * W) % 16 == 0
+    want = {s: "tma" if s in ("height", "lever", "ceiling") else "cp.async" for s in surfaces}
+    assert cfg["routes"] == want and cfg["staged"] == 1
+    box, tag = -(-P * bw * 4 // 128) * 128, -(-P * bw // 128) * 128
+    stage = sum(box if r == "tma" else tag for r in want.values())
+    assert cfg["smem"] == k2.ALIGN_PAD + k2.STAGES * stage + k2.RING_BYTES
+    assert cfg["smem"] <= 227 * 1024
+    assert cfg["grid"] == max(1, min(n, sms * per_sm))
+
+
+@pytest.mark.parametrize("W", [128, 130, 1800])
+@pytest.mark.parametrize("P", [1, 5, 24, 32, 34, 35])
+def test_terrain_window_launch_config(P, W):
+    """K2's launch parameters, for every surface set a caller passes: a
+    thread per 4 window cells in whole warps; the staged design (TMA only
+    where the row pitch is a multiple of 16 bytes) where W % 4 == 0, else
+    one block per env with plain loads."""
+    for surfaces in (("height",), ("height", "ceiling"), _ALL):
+        for n, sms, per_sm in ((1, 132, 6), (6144, 132, 6), (1000, 132, 16)):
+            cfg = k2.launch_config(n, P, W, surfaces, sms, per_sm)
+            assert cfg["threads"] % 32 == 0 and cfg["threads"] <= k2.MAX_THREADS
+            assert 4 * cfg["threads"] >= P * P > 4 * (cfg["threads"] - 32)
+            if W % 4 == 0:
+                _check_ring(cfg, P, W, surfaces, n, sms, per_sm)
+            else:
+                assert cfg["routes"] == {s: "plain" for s in surfaces}
+                assert (cfg["grid"], cfg["smem"], cfg["staged"]) == (n, 0, 0)
+    with pytest.raises(ValueError, match="windows of"):
+        k2.launch_config(1, k2.MAX_SIZE + 1, W, ("height",), 132, 1)
+
+
+@pytest.mark.parametrize("W", [128, 130, 1800])
+@pytest.mark.parametrize("P", [1, 5, 24, 32, 34, 35])
+def test_scandots_launch_config(P, W):
+    """K3's launch parameters: a warp an env, 8 envs a block, a group of
+    up to 160 points a warp, no shared memory, every surface gathered from
+    the grid whatever its width (the parameters do not depend on W); a
+    window of one cell has no +x/+y neighbour and is refused."""
+    g = _grids(np.random.default_rng(0))[1]
+    w = torch.zeros((1, 3))
+    assert k3.used_surfaces(g, w) == (("height", "lever", "layer_id"), 2)
+    assert k3.floor_inputs(g, w)[:2] == (g.lever, g.layer_id)
+    assert k3.used_surfaces(g, w[:, :1]) == (("height", "lever"), 0)
+    assert k3.used_surfaces(g, None) == (("height",), 0)
+    assert k3.ROUTE == "gather"
+    for n, K in ((1, 132), (6144, 132), (1000, 33), (7, 300)):
+        if P < 2:
+            with pytest.raises(ValueError, match="at least 2 cells"):
+                k3.launch_config(n, K, P)
+            continue
+        cfg = k3.launch_config(n, K, P)
+        assert cfg == dict(threads=32 * k3.ENVS_PER_BLOCK, grid=-(-n // k3.ENVS_PER_BLOCK),
+                           point_groups=-(-K // (32 * k3.GROUP)))
+        assert cfg["threads"] == 256 and 32 * k3.GROUP * cfg["point_groups"] >= K

@@ -26,27 +26,29 @@ import pytest
 import torch
 
 from agility_tpu.envs import go2_agility as jenv
-from agility_tpu.envs.tsc_config import (Go2AgilityCfg, TscDomainRandCfg, TscEnvCfg,
-                                         tsc_smoke_cfg)
+from agility_tpu.envs import tsc_config as jcfg
 from agility_tpu.core import quat as jqm
 from agility_tpu.learn import networks as jnets
 from agility_tpu.learn import networks_tsc as jtnets
 from agility_tpu.physics import engine as jeng
 from agility_tpu.physics import heightfield as jhf
 from agility_tpu.terrain import obstacle as jobst
+from agility_tpu_torch.envs import tsc_config as tcfg
 from agility_tpu_torch.cli import play_tsc
 from agility_tpu_torch.envs import go2_agility as tenv
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.learn.policy_tsc import build_tsc_policy
 from agility_tpu_torch.physics import engine as teng
 from agility_tpu_torch.physics import heightfield as thf
+from agility_tpu_torch.terrain import obstacle as tobst
 from torch_cases import TMC
 
 LOGS = os.path.join(os.path.dirname(__file__), "..", "logs")
 TSC_CKPT = os.path.join(LOGS, "agility", "r5", "model_12000.msgpack")
 BBC_CKPT = os.path.join(LOGS, "bbc_r5", "bbc_final.msgpack")
 N = 4
-CFG = tsc_smoke_cfg(num_envs=N, courses=2)     # friction, command noise and delay off
+# friction, command noise and delay off; the JAX package's config and the port's
+CFG, TCFG = jcfg.tsc_smoke_cfg(num_envs=N, courses=2), tcfg.tsc_smoke_cfg(num_envs=N, courses=2)
 TUNNEL, SEESAW = jobst.OBST_TYPES.index("tunnel"), jobst.OBST_TYPES.index("seesaw")
 
 
@@ -57,7 +59,7 @@ def _flax(path):
 
 @pytest.fixture(scope="module")
 def envs():
-    return jenv.Go2AgilityEnv(CFG), tenv.Go2AgilityEnv(CFG, "cpu")
+    return jenv.Go2AgilityEnv(CFG), tenv.Go2AgilityEnv(TCFG, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -91,14 +93,15 @@ def test_env_constants_match():
     """Per-env constants drawn from default_rng(cfg.seed) equal the JAX
     env's, with every randomization that draws on; the default scan window
     is 34 cells."""
-    from agility_tpu.terrain.obstacle import ObstacleCfg
+    def cfg(m, obst):
+        return m.Go2AgilityCfg(
+            env=m.TscEnvCfg(num_envs=6),
+            obstacle=obst.ObstacleCfg(courses=2, measure_horizontal_noise=0.02),
+            domain_rand=m.TscDomainRandCfg(randomize_base_mass=True, randomize_base_com=True,
+                                           randomize_motor=True))
 
-    cfg = Go2AgilityCfg(
-        env=TscEnvCfg(num_envs=6), obstacle=ObstacleCfg(courses=2, measure_horizontal_noise=0.02),
-        domain_rand=TscDomainRandCfg(randomize_base_mass=True, randomize_base_com=True,
-                                     randomize_motor=True))
-    for c in (cfg, CFG):
-        je, te = jenv.Go2AgilityEnv(c), tenv.Go2AgilityEnv(c, "cpu")
+    for jc, tc in ((cfg(jcfg, jobst), cfg(tcfg, tobst)), (CFG, TCFG)):
+        je, te = jenv.Go2AgilityEnv(jc), tenv.Go2AgilityEnv(tc, "cpu")
         for f in ("friction", "kp_scale", "kd_scale", "added_base_mass", "base_com_shift"):
             np.testing.assert_array_equal(getattr(te.base_params, f).numpy(),
                                           np.asarray(getattr(je.base_params, f)), err_msg=f)
@@ -119,7 +122,8 @@ def test_networks_match_flax(rng):
     ref = _flax(TSC_CKPT)
     sl = jtnets.TscObsSlices()
     ac = jtnets.ActorCriticTSC(num_actions_d=3, num_actions_c=6, slices=sl)
-    pol = build_tsc_policy(CFG, ckpt.params_from_jax_tsc(ckpt.read_msgpack(TSC_CKPT)))
+    pol = build_tsc_policy(TCFG, ckpt.params_from_jax_tsc(ckpt.read_msgpack(TSC_CKPT)),
+                           device="cpu")
     obs = rng.normal(0, 1.0, (16, sl.total)).astype(np.float32)
     o, t = jnp.asarray(obs), torch.as_tensor(obs)
     with torch.no_grad():
@@ -147,7 +151,7 @@ def test_set_commands_matches(envs, jstate, rng):
     hl = _hl_actions(rng)
     with jax.disable_jit():
         js, jnc = je.set_commands(jstate, jnp.asarray(hl))
-    ts, tnc = te.set_commands(tenv.state_from_jax(jstate), torch.as_tensor(hl))
+    ts, tnc = te.set_commands(tenv.state_from_jax(jstate, "cpu"), torch.as_tensor(hl))
     np.testing.assert_allclose(tnc.numpy(), np.asarray(jnc), atol=1e-6)
     for f in ("commands", "latent_c", "latent_eps", "action_hl_history"):
         np.testing.assert_allclose(getattr(ts, f).numpy(), np.asarray(getattr(js, f)),
@@ -164,7 +168,7 @@ def test_env_step_matches(envs, jstate):
             s1, out = je.step(jstate, jnp.asarray(acts))
     finally:
         mp.undo()
-    t0 = tenv.state_from_jax(jstate)
+    t0 = tenv.state_from_jax(jstate, "cpu")
     t1, tout = te.step(t0, torch.as_tensor(acts))
 
     # env 0 is under the tunnel roof, env 1's feet on the seesaw plank
@@ -202,7 +206,7 @@ def _flat(ceiling_z, n=64):
     h = np.zeros((n, n), np.float32)
     ceil = np.full((n, n), ceiling_z, np.float32)
     kw = dict(hscale=0.05, origin_xy=(-n * 0.05 / 2, -n * 0.05 / 2), ceiling=ceil)
-    return jhf.from_numpy(h, **kw), thf.from_numpy(h, **kw)
+    return jhf.from_numpy(h, **kw), thf.from_numpy(h, device="cpu", **kw)
 
 
 def test_ceiling_rows_match_and_push_down(envs):
@@ -259,9 +263,9 @@ def test_hierarchical_action_matches(envs, jstate):
         ob = js.obs_bbc_buf.at[:, -nc.shape[1]:].set(nc)
         want = bbc.apply(bref["ac_params"], ob, method="action_mean", hist_encoding=True)
 
-    pol = build_tsc_policy(CFG, ckpt.params_from_jax_tsc(ckpt.read_msgpack(TSC_CKPT)),
-                           ckpt.load_bbc_frozen(BBC_CKPT))
-    ts = tenv.state_from_jax(jstate)
+    pol = build_tsc_policy(TCFG, ckpt.params_from_jax_tsc(ckpt.read_msgpack(TSC_CKPT)),
+                           ckpt.load_bbc_frozen(BBC_CKPT), "cpu")
+    ts = tenv.state_from_jax(jstate, "cpu")
     thl = pol.act(ts.obs_buf)
     np.testing.assert_array_equal(thl[:, 0].numpy(), np.asarray(hl[:, 0]))
     np.testing.assert_allclose(thl.numpy(), np.asarray(hl), atol=1e-5)

@@ -9,7 +9,7 @@ from agility_tpu_torch.physics import heightfield as thf
 from agility_tpu_torch.physics import soa as tsoa
 from agility_tpu_torch.physics.constants import ModelConsts
 
-TMC = ModelConsts.from_model(build_go2_model())
+TMC = ModelConsts.from_model(build_go2_model(), "cpu")
 N, S = 8, 24
 CFG = teng.EngineConfig()
 
@@ -97,3 +97,33 @@ def random_contact_problem(n, s, seed=0, warm=True):
             rng.uniform(0.3, 1.0, (n, s)), dinv, lam0)
     G, vf, bias, nrm, act, mu, dinv, lam0 = (np.ascontiguousarray(a, np.float32) for a in arrs)
     return G, vf, bias, nrm, act, dinv, mu, lam0
+
+
+def window_case(n, W, seed=0, device="cpu", k=132):
+    """layered_case's surfaces on a 96 x W grid (W = 128: the float32 rows
+    are whole 16-byte multiples, TMA copies; W = 130: they are not, plain
+    loads), n window centres over the grid with the first eight off each of
+    its edges and corners (origins clamp there), per-env weights and k scan
+    points per env around each centre."""
+    rng = np.random.default_rng(seed)
+    H = 96
+    layer_id = np.zeros((H, W), np.int8)
+    layer_id[:30, 40:60], layer_id[50:60, W - 40:] = 1, 2
+    lever = np.zeros((H, W), np.float32)
+    lever[70:, :20] = np.linspace(-0.5, 0.5, 20)[None, :]
+    ceil = np.full((H, W), thf.NO_CEILING, np.float32)
+    ceil[30:40, W - 30:] = 0.45
+    ceil_layer = np.zeros((H, W), np.int8)
+    ceil_layer[30:40, W - 20:] = 1
+    grid = thf.from_numpy((0.2 * rng.normal(size=(H, W))).astype(np.float32), 0.05, (-1.0, -1.0),
+                          device, layer_id=layer_id, lever=lever, ceiling=ceil,
+                          ceiling_layer=ceil_layer)
+    lo, hi = np.array([-1.0, -1.0]), np.array([-1.0 + 0.05 * (H - 1), -1.0 + 0.05 * (W - 1)])
+    c = lo + (hi - lo) * rng.uniform(0, 1, (n, 2))
+    off = np.array([[-1, 0.5], [2, 0.5], [0.5, -1], [0.5, 2], [-1, -1], [2, 2], [-1, 2], [2, -1]])
+    m = min(n, len(off))
+    c[:m] = lo + (hi - lo) * off[:m]
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    px = c[:, 0:1] + rng.uniform(-0.9, 0.9, (n, k))
+    py = c[:, 1:2] + rng.uniform(-0.9, 0.9, (n, k))
+    return grid, f32(c), f32(rng.uniform(-0.3, 0.3, (n, 3))), f32(px), f32(py)
