@@ -60,7 +60,7 @@ def build(args):
         raise SystemExit("play_bbc: --device cuda but torch sees no CUDA device")
 
     cfg = registry.apply_overrides(
-        registry.get(args.task)(),
+        registry.get(args.task)[0](),
         **{"env.num_envs": args.num_envs, "env.mocap_category": (args.mode,),
            "noise.add_noise": False, "domain_rand.push_robots": False,
            "domain_rand.randomize_friction": False, "domain_rand.randomize_base_mass": False,

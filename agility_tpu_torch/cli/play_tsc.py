@@ -60,7 +60,7 @@ def build(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("play_tsc: --device cuda but torch sees no CUDA device")
     cfg = registry.apply_overrides(
-        registry.get(args.task)(),
+        registry.get(args.task)[0](),
         **{"seed": args.seed, "env.num_envs": args.num_envs, "obstacle.courses": args.courses,
            "domain_rand.randomize_action": False, "domain_rand.action_delay": False,
            "domain_rand.randomize_friction": False})

@@ -1,26 +1,32 @@
-"""Task registry, env-config half (counterpart of agility_tpu/cli/registry.py).
+"""Task registry: name -> (env-config factory, algo-config factory)
+(counterpart of agility_tpu/cli/registry.py).
 
-The JAX registry also returns the algorithm configs, which import jax; the
-port has no trainer yet, and the policy widths are the network modules'
-defaults.
+The TSC task ("go2" in the JAX registry) has no algo half until its
+trainer is ported: asking for it raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 from agility_tpu_torch.envs import config as bbc_config
 from agility_tpu_torch.envs import tsc_config
+from agility_tpu_torch.learn.ssinfogail import AlgoCfg
 
-_REGISTRY: Dict[str, Callable] = {
-    "go2_locomotion": bbc_config.Go2LocomotionCfg,
-    "go2_locomotion_smoke": lambda: bbc_config.smoke_cfg(64),
-    "go2_agility": tsc_config.Go2AgilityCfg,      # the TSC task ("go2" in the JAX registry)
+
+def _tsc_algo_cfg():
+    raise NotImplementedError("TSC teacher training is not ported yet; go2_agility plays only")
+
+
+_REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
+    "go2_locomotion": (bbc_config.Go2LocomotionCfg, AlgoCfg),
+    "go2_locomotion_smoke": (lambda: bbc_config.smoke_cfg(64), AlgoCfg),
+    "go2_agility": (tsc_config.Go2AgilityCfg, _tsc_algo_cfg),
 }
 
 
-def get(name: str) -> Callable:
-    """The env-config builder of task `name`."""
+def get(name: str) -> Tuple[Callable, Callable]:
+    """(make_env_cfg, make_algo_cfg) of task `name`."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown task {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -1,7 +1,9 @@
 """Mocap reference-motion data (counterpart of agility_tpu/envs/mocap.py).
 
-Clips live in flat device tables; state-init frames are sampled on the
-device (clip by per-mode weight, time uniform, lerp + slerp).  The external
+Clips live in flat device tables; state-init frames and the discriminator's
+expert transitions are sampled on the device (clip by weight, time
+uniform, lerp + slerp) from an explicit torch.Generator.  The deterministic
+halves (`frames_at`, `transition_frames`) take the draws as arguments.  The external
 mocap dataset is not part of the repository, so the port carries only the
 procedural CPG gait clips of `synthetic()`.
 
@@ -38,6 +40,10 @@ class MotionData(NamedTuple):
     clip_dur: torch.Tensor      # (K,) frame duration [s]
     clip_len: torch.Tensor      # (K,) trajectory length [s]
     cat_logits: torch.Tensor    # (C, K) per-mode clip log-weights (-1e9 off-mode)
+    weights: torch.Tensor       # (K,) sampling weights, normalised over all clips
+    label: torch.Tensor         # (K,) int64 category index
+    ulb_frames: torch.Tensor    # (F2, 49) the unlabelled trajectory
+    ulb_dur: float              # its frame duration [s]
 
     def sample_frames(self, gen: torch.Generator, c_idx: torch.Tensor, dt: float,
                       disc_obs_len: int = 2) -> torch.Tensor:
@@ -64,6 +70,42 @@ class MotionData(NamedTuple):
         out[:, ROOT_ROT] = qm.quat_standardize(qm.slerp(f0[:, ROOT_ROT], f1[:, ROOT_ROT], blend))
         return out
 
+    def sample_transition_frames(self, gen: torch.Generator, n: int, dt: float, labeled: bool,
+                                 disc_obs_len: int = 2):
+        """n expert transitions: (disc_obs_len, n, 49) frame stacks dt apart
+        and (n,) labels (zeros on the unlabelled side).  Labelled clips are
+        drawn by weight; times uniform."""
+        dev = self.frames.device
+        clip = (torch.multinomial(self.weights, n, replacement=True, generator=gen) if labeled
+                else torch.zeros(n, dtype=torch.long, device=dev))
+        u = torch.rand(n, generator=gen, device=dev)
+        return self.transition_frames(clip, u, dt, labeled, disc_obs_len)
+
+    def transition_frames(self, clip, u, dt: float, labeled: bool, disc_obs_len: int = 2):
+        """sample_transition_frames at drawn clips and uniforms u in [0, 1)."""
+        if labeled:
+            lens, durs, labels = self.clip_len[clip], self.clip_dur[clip], self.label[clip]
+        else:
+            n = u.shape[0]
+            lens = torch.full((n,), (self.ulb_frames.shape[0] - 1) * self.ulb_dur, device=u.device)
+            durs = torch.full((n,), self.ulb_dur, device=u.device)
+            labels = torch.zeros(n, dtype=torch.long, device=u.device)
+        t0 = torch.clamp((lens - (dt * disc_obs_len + durs)) * u, min=1e-7)
+        at = (lambda t: self.frames_at(clip, t)) if labeled else self._ulb_frames_at
+        return torch.stack([at(t0 + i * dt) for i in range(disc_obs_len)]), labels
+
+    def _ulb_frames_at(self, t) -> torch.Tensor:
+        """Frames at times t along the unlabelled trajectory."""
+        F2 = self.ulb_frames.shape[0]
+        p = torch.clamp(t / ((F2 - 1) * self.ulb_dur), 0.0, 1.0)
+        lo = torch.clamp(torch.floor(p * F2).long(), 0, F2 - 1)
+        hi = torch.clamp(torch.ceil(p * F2).long(), 0, F2 - 1)
+        f0, f1 = self.ulb_frames[lo], self.ulb_frames[hi]
+        blend = (p * F2 - lo)[:, None]
+        out = f0 + blend * (f1 - f0)
+        out[:, ROOT_ROT] = qm.quat_standardize(qm.slerp(f0[:, ROOT_ROT], f1[:, ROOT_ROT], blend))
+        return out
+
 
 def disc_obs_from_frames(frames: torch.Tensor, default_dof_pos, obs_scales) -> torch.Tensor:
     """49-d discriminator features of full frames, in the base frame (the
@@ -83,7 +125,9 @@ def disc_obs_from_frames(frames: torch.Tensor, default_dof_pos, obs_scales) -> t
                       key_pos, contact], dim=-1)
 
 
-def _build(clips, labels, weights, durs, categories, device) -> MotionData:
+def _build(clips, labels, weights, durs, ulb_dur, categories, device) -> MotionData:
+    """The flat tables; with no unlabelled dataset the labelled frames serve
+    as the unlabelled trajectory, as in the JAX package."""
     starts = np.cumsum([0] + [len(c) for c in clips[:-1]])
     nframes = np.asarray([len(c) for c in clips])
     w = np.asarray(weights, np.float64)
@@ -95,13 +139,15 @@ def _build(clips, labels, weights, durs, categories, device) -> MotionData:
         if m.any():
             logits[c, m] = np.log(w[m] / w[m].sum())
     t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+    frames = t(np.concatenate(clips).astype(np.float32), torch.float32)
     return MotionData(
         categories=tuple(categories),
-        frames=t(np.concatenate(clips).astype(np.float32), torch.float32),
+        frames=frames,
         clip_start=t(starts, torch.int64), clip_frames=t(nframes, torch.int64),
         clip_dur=t(durs, torch.float32),
         clip_len=t(((nframes - 1) * np.asarray(durs)).astype(np.float32), torch.float32),
-        cat_logits=t(logits, torch.float32))
+        cat_logits=t(logits, torch.float32), weights=t(w, torch.float32),
+        label=t(lab, torch.int64), ulb_frames=frames, ulb_dur=float(ulb_dur))
 
 
 _GAIT_PHASES = {
@@ -162,4 +208,4 @@ def synthetic(model, categories: Sequence[str], n_frames: int = 120,
             labels.append(label)
             weights.append(1.0)
             durs.append(frame_dur)
-    return _build(clips, labels, weights, durs, categories, device)
+    return _build(clips, labels, weights, durs, frame_dur, categories, device)

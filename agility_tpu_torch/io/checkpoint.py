@@ -1,19 +1,34 @@
-"""Read the JAX package's flax msgpack checkpoints without flax or msgpack
-(counterpart of agility_tpu/io/checkpoint.py, read side).
+"""Checkpoints in the JAX package's flax msgpack layout, read and written
+without flax or msgpack (counterpart of agility_tpu/io/checkpoint.py).
 
 `read_msgpack` decodes the msgpack subset flax writes: maps, arrays, str,
 bin, nil/bool, ints, floats, and flax's ext types 1 (ndarray) and 3 (numpy
-scalar), whose payload is a msgpack (shape, dtype name, raw bytes) triple.
+scalar), whose payload is a msgpack (shape, dtype name, raw bytes) triple;
+`write_msgpack` encodes the same subset, byte for byte as flax's
+`serialization.to_bytes` does for a tree of dicts, arrays and scalars.
 `params_from_jax` (BBC) and `params_from_jax_tsc` (TSC teacher) carry the
-flax parameter trees across to the port's modules:
+flax parameter trees across to the port's modules, and `params_to_jax`
+carries the BBC's back:
   * a flax Dense kernel is (in, out); nn.Linear.weight is (out, in);
   * a flax Conv kernel is (k, in, out) over (..., T, C) input; nn.Conv1d's
     weight is (out, in, k) over (B, C, T).
+
+A BBC training run writes two artifacts (learn/runner.py):
+  * model_<step>.msgpack, the slim tree (ac_params, est_params, disc_params,
+    disc_norm, prior_parameters, lr_ac, iteration) in the flax layout, which
+    the port's play_bbc and load_bbc_frozen and the JAX package's
+    `checkpoint.load_into` all read;
+  * state_<step>.pt beside it, the port's own exact-resume state written
+    with torch.save: the optimisers, the replay ring and the normaliser, the
+    counters, task_obs_weight, the generators' states, the env state and
+    the disc window.  The JAX package does not read it.
 """
 from __future__ import annotations
 
+import os
+import re
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -101,6 +116,77 @@ def read_msgpack(path: str) -> Any:
     return tree
 
 
+def _pack(obj, out: list) -> None:
+    """msgpack encoding of `obj` into the byte chunks `out`, smallest form
+    first, as msgpack-python packs it."""
+    def head(n, small, fixbase, codes):
+        if n < small:
+            out.append(bytes([fixbase | n]))
+            return
+        for limit, code, fmt in codes:
+            if n < limit:
+                out.append(struct.pack(">B" + fmt, code, n))
+                return
+        raise ValueError(f"msgpack: length {n} too large")
+
+    big = ((1 << 16, 0xDC, "H"), (1 << 32, 0xDD, "I"))
+    if obj is None or isinstance(obj, bool):
+        out.append(bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[obj]]))
+    elif isinstance(obj, int):
+        if -32 <= obj < 128:
+            out.append(struct.pack(">b" if obj < 0 else ">B", obj))
+            return
+        ranges = ((0xCC, ">B", 0, 1 << 8), (0xCD, ">H", 0, 1 << 16), (0xCE, ">I", 0, 1 << 32),
+                  (0xCF, ">Q", 0, 1 << 64)) if obj >= 0 else (
+            (0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0),
+            (0xD2, ">i", -(1 << 31), 0), (0xD3, ">q", -(1 << 63), 0))
+        code, fmt, _, _ = next(r for r in ranges if r[2] <= obj < r[3])
+        out.append(bytes([code]) + struct.pack(fmt, obj))
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, str):
+        b = obj.encode()
+        head(len(b), 32, 0xA0, ((1 << 8, 0xD9, "B"), (1 << 16, 0xDA, "H"), (1 << 32, 0xDB, "I")))
+        out.append(b)
+    elif isinstance(obj, bytes):
+        head(len(obj), 0, 0, ((1 << 8, 0xC4, "B"), (1 << 16, 0xC5, "H"), (1 << 32, 0xC6, "I")))
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        head(len(obj), 16, 0x90, big)
+        for x in obj:
+            _pack(x, out)
+    elif isinstance(obj, dict):
+        head(len(obj), 16, 0x80, ((1 << 16, 0xDE, "H"), (1 << 32, 0xDF, "I")))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic, torch.Tensor)):
+        # flax's ext 1 (ndarray) / 3 (numpy scalar): packed (shape, dtype, bytes)
+        code = 3 if isinstance(obj, np.generic) else 1
+        arr = obj.detach().cpu().numpy() if isinstance(obj, torch.Tensor) else np.asarray(obj)
+        payload = []
+        _pack((list(arr.shape), arr.dtype.name, arr.tobytes("C")), payload)
+        data = b"".join(payload)
+        fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fix:
+            out.append(struct.pack(">Bb", fix[len(data)], code))
+        else:
+            head(len(data), 0, 0, ((1 << 8, 0xC7, "B"), (1 << 16, 0xC8, "H"), (1 << 32, 0xC9, "I")))
+            out.append(struct.pack(">b", code))
+        out.append(data)
+    else:
+        raise TypeError(f"msgpack: cannot encode {type(obj).__name__}")
+
+
+def write_msgpack(path: str, tree: Any) -> None:
+    """Write a nested dict of arrays (numpy or torch) and scalars as flax's
+    msgpack checkpoint bytes."""
+    out = []
+    _pack(tree, out)
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
 def _dense(p, prefix: str) -> Dict[str, torch.Tensor]:
     return {f"{prefix}.weight": torch.as_tensor(np.asarray(p["kernel"]).T.copy()),
             f"{prefix}.bias": torch.as_tensor(np.asarray(p["bias"]))}
@@ -126,10 +212,20 @@ def _history_encoder(he, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _disc(p, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    for i in range(2):
+        out.update(_dense(p[f"Dense_{i}"], f"{prefix}trunk.{i}"))
+    for h in ("head_logit", "head_eps", "head_classifier"):
+        out.update(_dense(p[h], prefix + h))
+    return out
+
+
 def params_from_jax(tree) -> Dict[str, Dict[str, torch.Tensor]]:
     """State dicts {"actor_critic": ..., "estimator": ...} for
     networks.ActorCritic / networks.Estimator from a flax checkpoint tree
-    (`ac_params`, `est_params`)."""
+    (`ac_params`, `est_params`), and "discriminator" for
+    networks.Discriminator where the tree has `disc_params`."""
     ac = tree["ac_params"]["params"]
     sd = {"std": torch.as_tensor(np.asarray(ac["std"]))}
     sd.update(_mlp(ac["priv_encoder"], "priv_encoder"))
@@ -139,7 +235,46 @@ def params_from_jax(tree) -> Dict[str, Dict[str, torch.Tensor]]:
     sd.update(_mlp(ac["critic_trunk"], "critic_trunk"))
     sd.update(_dense(ac["critic_head"], "critic_head"))
     est = _mlp(tree["est_params"]["params"]["MLP_0"], "mlp")
-    return {"actor_critic": sd, "estimator": est}
+    out = {"actor_critic": sd, "estimator": est}
+    if "disc_params" in tree:
+        out["discriminator"] = _disc(tree["disc_params"]["params"])
+    return out
+
+
+def _to_dense(sd, prefix: str) -> Dict[str, np.ndarray]:
+    w = sd[f"{prefix}.weight"].detach().cpu().numpy()
+    return {"kernel": np.ascontiguousarray(w.T), "bias": sd[f"{prefix}.bias"].detach().cpu().numpy()}
+
+
+def _to_conv(sd, prefix: str) -> Dict[str, np.ndarray]:
+    w = sd[f"{prefix}.weight"].detach().cpu().numpy()
+    return {"kernel": np.ascontiguousarray(np.transpose(w, (2, 1, 0))),
+            "bias": sd[f"{prefix}.bias"].detach().cpu().numpy()}
+
+
+def _to_mlp(sd, prefix: str) -> Dict[str, Dict[str, np.ndarray]]:
+    n = len({k.split(".")[2] for k in sd if k.startswith(prefix + ".layers.")})
+    return {f"Dense_{i}": _to_dense(sd, f"{prefix}.layers.{i}") for i in range(n)}
+
+
+def params_to_jax(ac_sd, est_sd, disc_sd) -> Dict[str, Any]:
+    """The flax parameter trees {"ac_params", "est_params", "disc_params"}
+    of the BBC's state dicts (the inverse of params_from_jax)."""
+    ac = {"std": ac_sd["std"].detach().cpu().numpy()}
+    for m in ("priv_encoder", "actor_trunk", "critic_trunk"):
+        ac[m] = _to_mlp(ac_sd, m)
+    ac["history_encoder"] = {"Dense_0": _to_dense(ac_sd, "history_encoder.proj"),
+                             "Conv_0": _to_conv(ac_sd, "history_encoder.conv0"),
+                             "Conv_1": _to_conv(ac_sd, "history_encoder.conv1"),
+                             "Dense_1": _to_dense(ac_sd, "history_encoder.out")}
+    for h in ("actor_head", "critic_head"):
+        ac[h] = _to_dense(ac_sd, h)
+    disc = {f"Dense_{i}": _to_dense(disc_sd, f"trunk.{i}") for i in range(2)}
+    for h in ("head_logit", "head_eps", "head_classifier"):
+        disc[h] = _to_dense(disc_sd, h)
+    return {"ac_params": {"params": ac},
+            "est_params": {"params": {"MLP_0": _to_mlp(est_sd, "mlp")}},
+            "disc_params": {"params": disc}}
 
 
 def params_from_jax_tsc(tree) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -166,3 +301,74 @@ def load_bbc_frozen(path: str) -> Dict[str, torch.Tensor]:
     path runs only its actor, so the estimator and discriminator are not
     read)."""
     return params_from_jax(read_msgpack(path))["actor_critic"]
+
+
+# ---------------------------------------------------------------------------
+# files: <prefix>_<step><ext> in a run's log directory
+# ---------------------------------------------------------------------------
+
+
+def save(path: str, tree: Any, step: Optional[int] = None) -> str:
+    """Write a slim tree in the flax msgpack layout; with `step`, as
+    <base>_<step>.msgpack.  Returns the path written."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if step is not None:
+        base, ext = os.path.splitext(path)
+        path = f"{base}_{step}{ext or '.msgpack'}"
+    write_msgpack(path, tree)
+    return path
+
+
+def step_of(path: str) -> Optional[int]:
+    """The step of a <prefix>_<step>.msgpack file name (None without one)."""
+    m = re.search(r"_(\d+)\.msgpack$", os.path.basename(path))
+    return int(m.group(1)) if m else None
+
+
+def state_path(model_path: str) -> str:
+    """The exact-resume file beside a slim checkpoint:
+    model_<step>.msgpack -> state_<step>.pt."""
+    d, name = os.path.split(model_path)
+    return os.path.join(d, "state" + os.path.splitext(name[len("model"):])[0] + ".pt")
+
+
+def sibling_state(model_path: str) -> Optional[str]:
+    """The exact-resume file beside a slim checkpoint, if it exists."""
+    if not os.path.basename(model_path).startswith("model"):
+        return None
+    p = state_path(model_path)
+    return p if os.path.exists(p) else None
+
+
+def prune(log_dir: str, prefix: str = "model", keep_latest: int = 5,
+          keep_every: int = 0, ext: str = ".msgpack") -> int:
+    """Delete old <prefix>_<step><ext> files, keeping the newest
+    `keep_latest` and (keep_every > 0) every multiple of `keep_every`.
+    Returns the number removed."""
+    if not os.path.isdir(log_dir):
+        return 0
+    pat = re.compile(rf"{re.escape(prefix)}_(\d+){re.escape(ext)}$")
+    steps = sorted((int(m.group(1)), m.group(0))
+                   for m in (pat.match(n) for n in os.listdir(log_dir)) if m)
+    removed = 0
+    for step, name in steps[:-keep_latest] if keep_latest else steps:
+        if keep_every and step % keep_every == 0:
+            continue
+        os.remove(os.path.join(log_dir, name))
+        removed += 1
+    return removed
+
+
+def latest(log_dir: str, prefix: str = "model") -> Optional[str]:
+    """The newest <prefix>[_<step>].msgpack in `log_dir`, or None."""
+    if not os.path.isdir(log_dir):
+        return None
+    best, best_step = None, -1
+    pat = re.compile(rf"{re.escape(prefix)}(?:_(\d+))?\.msgpack$")
+    for name in os.listdir(log_dir):
+        m = pat.match(name)
+        if m:
+            step = int(m.group(1) or 0)
+            if step > best_step:
+                best, best_step = os.path.join(log_dir, name), step
+    return best

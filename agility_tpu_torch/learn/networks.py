@@ -1,12 +1,20 @@
-"""Policy / value / estimator networks as torch modules (counterpart of
-agility_tpu/learn/networks.py).
+"""Policy / value / estimator / discriminator networks as torch modules
+(counterpart of agility_tpu/learn/networks.py).
 
 Parameter names follow the flax modules (priv_encoder, history_encoder,
 actor_trunk, actor_head, critic_trunk, critic_head, std; the estimator's
-MLP), so io/checkpoint.params_from_jax maps a flax checkpoint leaf by leaf.
+MLP; the discriminator's trunk and heads), so io/checkpoint.params_from_jax
+and params_to_jax map a flax checkpoint leaf by leaf.
+
+`flax_init_` gives a module flax's initial values (PyTorch's defaults,
+kaiming-uniform kernels and uniform biases, are a different start):
+lecun-normal kernels truncated at 2 sigma, sigma = sqrt(1 / fan_in) / 0.8796
+(the truncation's variance correction), zero biases; the discriminator's
+logit head is U(-1, 1) and the policy's `std` starts at init_noise_std.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -126,3 +134,95 @@ class Estimator(nn.Module):
 
     def forward(self, prop):
         return self.mlp(prop)
+
+
+class Discriminator(nn.Module):
+    """SSInfoGAIL discriminator: a shared ReLU trunk and three heads, the
+    real/fake logit, the eps encoder and the mode classifier (a softmax
+    clipped below at 1e-20)."""
+
+    def __init__(self, in_dim: int, dim_c: int = 5, hidden=(512, 256)):
+        super().__init__()
+        self.trunk = nn.ModuleList()
+        for d in hidden:
+            self.trunk.append(nn.Linear(in_dim, d))
+            in_dim = d
+        self.head_logit = nn.Linear(in_dim, 1)
+        self.head_eps = nn.Linear(in_dim, 1)
+        self.head_classifier = nn.Linear(in_dim, dim_c)
+
+    def forward(self, x):
+        for layer in self.trunk:
+            x = F.relu(layer(x))
+        c = torch.softmax(self.head_classifier(x), dim=-1)
+        return self.head_logit(x), self.head_eps(x), torch.clamp(c, min=1e-20)
+
+
+# ---------------------------------------------------------------------------
+
+
+_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Flax's default initial values, in place, drawn from `gen` (on the
+    parameters' device): lecun-normal kernels (fan_in = in for a Dense,
+    kernel size x in for a Conv), truncated at 2 sigma, and zero biases;
+    a Discriminator's logit kernel U(-1, 1); ActorCritic.std keeps its
+    init_noise_std."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv1d)):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+            nn.init.zeros_(m.bias)
+    for m in module.modules():
+        if isinstance(m, Discriminator):
+            nn.init.uniform_(m.head_logit.weight, -1.0, 1.0, generator=gen)
+    return module
+
+
+def gaussian_log_prob(mean, std, actions):
+    var = std ** 2
+    return torch.sum(-0.5 * torch.square(actions - mean) / var - torch.log(std)
+                     - 0.5 * math.log(2 * math.pi), dim=-1)
+
+
+def gaussian_entropy(std):
+    return torch.sum(0.5 + 0.5 * math.log(2 * math.pi) + torch.log(std), dim=-1)
+
+
+class RunningNormalizer:
+    """Running mean / population variance of features (Welford merge of
+    whole batches), count starting at 1e-4; `normalize` clips at +-10."""
+
+    CLIP = 10.0
+
+    def __init__(self, dim: int, device="cuda"):
+        self.mean = torch.zeros(dim, device=device)
+        self.var = torch.ones(dim, device=device)
+        self.count = torch.tensor(1e-4, device=device)
+
+    def update(self, batch: torch.Tensor) -> None:
+        bmean = batch.mean(dim=0)
+        bvar = batch.var(dim=0, correction=0)
+        bcount = batch.shape[0]
+        delta = bmean - self.mean
+        tot = self.count + bcount
+        self.mean = self.mean + delta * bcount / tot
+        m2 = self.var * self.count + bvar * bcount + torch.square(delta) * self.count * bcount / tot
+        self.var = m2 / tot
+        self.count = tot
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        out = (x - self.mean) / torch.sqrt(self.var + 1e-8)
+        return torch.clamp(out, -self.CLIP, self.CLIP)
+
+    def state_dict(self):
+        return {"mean": self.mean, "var": self.var, "count": self.count}
+
+    def load_state_dict(self, sd) -> None:
+        dev = self.mean.device
+        self.mean, self.var, self.count = (torch.as_tensor(sd[k], dtype=torch.float32).to(dev)
+                                           for k in ("mean", "var", "count"))

@@ -58,6 +58,29 @@ Phases (any failure exits nonzero and prints no result line):
                logs/bbc_r5/bbc_final.msgpack for 200 control steps; K1 launches =
                4 x (steps + 1), K2 = K3 = steps + 1, every state finite, median
                base height over the folded floor in [0.15, 0.45] m.
+  9. train parity — one BBC train iteration of 64 envs (T = 8, the rough
+               go2_locomotion config with observation noise and pushes off,
+               the full AlgoCfg otherwise) on the card against the CPU, from
+               one start state, the same weights and expert tables and the
+               same draws: the rollout's end states against the SoA
+               tolerances (envs reset on either side excluded; both must
+               reset the same envs); then GAE, PPO, the disc update and DAgger
+               on identical inputs (the CPU rollout's transitions and ring
+               fed to both): each stage's metrics within TRAIN_TOL relative
+               and the parameters of the networks it updates within TRAIN_TOL
+               (the disc update's within DISC_PARAM_TOL), as |card - CPU| /
+               |CPU| over each network.
+ 10. BBC train — cli/train_bbc at 4096 envs on go2_locomotion with the full
+               AlgoCfg for 3 iterations (iteration 0 runs DAgger): each
+               iteration's time and its stages' times (CUDA events), env-steps/s
+               over iterations 1-2, peak device memory, the last metrics; K1
+               launches = 4 x 24 x 3, K2 = 24 x 3 (counted after the runner's
+               init), every parameter and metric finite, ring size 3 x 24 x
+               4096, normaliser count above its start, and the slim checkpoint
+               read back by play_bbc's policy loader to equal tensors; the env
+               step alone (zero actions) timed before and after training; then
+               one more iteration under torch.profiler for the device's busy
+               share.
 The line before the last is the kernels' JSON record; the last line is the
 device record.
 """
@@ -83,6 +106,17 @@ NUM_ENVS = 4096     # the BBC path's width
 STEPS = 250         # control steps of the BBC slice phase
 TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
 TSC_STEPS = 200     # control steps of the TSC slice phase
+TRAIN_ITERS = 3     # iterations of the BBC train phase
+TRAIN_TOL = 1e-4    # card vs CPU, relative, per train stage
+# the disc update's parameters: a trunk unit whose pre-activation lies within
+# rounding of zero on some row sends the two sides' gradients apart there
+# (tests/test_torch_train.py measured 1.9e-4 against the JAX package)
+DISC_PARAM_TOL = 1e-3
+# the training rollout's rewards, values, log-probs, means and ring rows, card
+# vs CPU, relative (two-norms over the envs that did not reset): the states
+# are held to SOA_TOL, and the task reward's acceleration and torque terms
+# magnify their differences
+ROLLOUT_TOL = 1e-2
 SOA_TOL = dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
@@ -156,7 +190,7 @@ def bbc_case(num_envs=NUM_ENVS, device="cuda"):
     from agility_tpu_torch.cli import registry
     from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
 
-    cfg = registry.apply_overrides(registry.get("go2_locomotion")(),
+    cfg = registry.apply_overrides(registry.get("go2_locomotion")[0](),
                                    **{"env.num_envs": num_envs,
                                       "env.mocap_category": ("trot",)})
     env = Go2LocomotionEnv(cfg, device, seed=0)
@@ -460,7 +494,7 @@ def phase_parity(num_envs=64):
     from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
     from agility_tpu_torch.learn.policy import build_policy
 
-    cfg = registry.apply_overrides(registry.get("go2_locomotion")(),
+    cfg = registry.apply_overrides(registry.get("go2_locomotion")[0](),
                                    **{"env.num_envs": num_envs,
                                       "env.mocap_category": ("trot",)})
     gpu, cpu = Go2LocomotionEnv(cfg, "cuda", seed=0), Go2LocomotionEnv(cfg, "cpu", seed=0)
@@ -634,6 +668,254 @@ def tsc_busy_share(res, num_envs, steps=2):
           f"{step_ms:.1f} ms step", flush=True)
 
 
+def _rel(a, b):
+    """|a - b| / max(|b|, 1e-3), two-norms, b on the CPU."""
+    a = a.detach().float().cpu().reshape(-1)
+    b = b.detach().float().reshape(-1)
+    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)), 1e-3))
+
+
+def _stage_errors(gm, cm, gts, cts, nets):
+    """The largest metric error of a train stage and the parameter error of
+    each network in `nets` (those the stage updates), card (g) vs CPU (c)."""
+    m = max(_rel(gm[k], cm[k]) for k in cm)
+    p = {k: _rel(torch.cat([t.flatten() for t in getattr(gts, k).parameters()]),
+                 torch.cat([t.flatten() for t in getattr(cts, k).parameters()]))
+         for k in nets}
+    return m, p
+
+
+def phase_train_parity(num_envs=64, steps=8):
+    """One BBC train iteration on the card (kernels) against the CPU (plain
+    versions): the rollout from one state, then each update stage on
+    identical inputs."""
+    from agility_tpu_torch.cli import registry
+    from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
+    from agility_tpu_torch.learn.ssinfogail import AlgoCfg, Draws, SSInfoGAIL, Transition
+
+    cfg = registry.apply_overrides(registry.get("go2_locomotion")[0](),
+                                   **{"env.num_envs": num_envs, "noise.add_noise": False,
+                                      "domain_rand.push_robots": False})
+    acfg = AlgoCfg(num_steps_per_env=steps, num_preload_transitions=20_000,
+                   disc_replay_buffer_size=4 * steps * num_envs)
+    ga = SSInfoGAIL(Go2LocomotionEnv(cfg, "cuda", seed=0), acfg, seed=0)
+    ca = SSInfoGAIL(Go2LocomotionEnv(cfg, "cpu", seed=0), acfg, seed=0)
+    ca.expert_lb, ca.expert_labels, ca.expert_ulb = (
+        t.cpu() for t in (ga.expert_lb, ga.expert_labels, ga.expert_ulb))
+    gts, cts = ga.init_train_state(), ca.init_train_state()
+    for k in ("ac", "est", "disc"):
+        getattr(cts, k).load_state_dict(getattr(gts, k).state_dict())
+    es = ga.env.init_state()
+    es = es._replace(prior_parameters=gts.prior_parameters)
+    dh = es.disc_obs[:, None].repeat(1, ga.disc_obs_len, 1)
+    draws = ca.draw(cts)
+    gdraws = Draws(*(d.cuda() for d in draws))
+    cuda = lambda t: Transition(*(x.cuda() for x in t))
+
+    # the rollout (it = 0: through the DAgger latent)
+    ges, _, g_rollout, _ = ga.rollout(gts, es, dh, True, gdraws.action_noise)
+    ces, _, ctrs, _ = ca.rollout(cts, _to(es, "cpu"), dh.cpu(), True, draws.action_noise)
+    reset_g, reset_c = g_rollout.dones.any(0).cpu(), ctrs.dones.any(0)
+    keep = ~(reset_g | reset_c)
+    errs = {k: float((getattr(ges.sim, k).cpu() - getattr(ces.sim, k))[keep].abs().max())
+            for k in SOA_TOL}
+    print(f"train parity {num_envs} envs x {steps} steps, rollout card vs CPU: "
+          f"{int((~keep).sum())} envs reset; "
+          + ", ".join(f"{k} {v:.3e} (tol {SOA_TOL[k]:g})" for k, v in errs.items()), flush=True)
+    # what the rollout stored, the card's disc reward and ring insert included
+    ring_rows = lambda ts: ts.ring.data[:steps * num_envs].reshape(steps, num_envs, -1)
+    stored = {k: (getattr(g_rollout, k), getattr(ctrs, k))
+              for k in ("rewards", "values", "log_prob", "mean")}
+    stored["ring rows"] = (ring_rows(gts), ring_rows(cts))
+    rerr = {k: _rel(g.cpu()[:, keep], c[:, keep]) for k, (g, c) in stored.items()}
+    print("train parity, the rollout's transitions and ring rows card vs CPU (relative, tol "
+          f"{ROLLOUT_TOL:g}): " + ", ".join(f"{k} {v:.3e}" for k, v in rerr.items()), flush=True)
+    if not torch.equal(reset_g, reset_c):
+        raise SystemExit("train parity: the card and the CPU reset different envs")
+    if not all(np.isfinite(v) and v <= SOA_TOL[k] for k, v in errs.items()):
+        raise SystemExit("train parity: the card's rollout disagrees with the CPU's")
+    if not all(np.isfinite(v) and v <= ROLLOUT_TOL for v in rerr.values()):
+        raise SystemExit("train parity: the card's rollout stored other transitions or rows")
+
+    # the stages on identical inputs: the CPU rollout and ring on both sides
+    gts.ring.load_state_dict(cts.ring.state_dict())
+    with torch.no_grad():
+        clast = cts.ac.value(ces.obs_buf)
+        glast = gts.ac.value(ces.obs_buf.cuda())
+    cadv, cret = ca.compute_gae(ctrs, clast)
+    gadv, gret = ga.compute_gae(cuda(ctrs), glast)
+    gae = max(_rel(gadv, cadv), _rel(gret, cret))
+    gtrs = cuda(ctrs)
+    stages = {}
+    gm = ga.ppo_update(gts, gtrs, cadv.cuda(), cret.cuda(), gdraws.ppo_perm)
+    cm = ca.ppo_update(cts, ctrs, cadv, cret, draws.ppo_perm)
+    stages["ppo"] = _stage_errors(gm, cm, gts, cts, ("ac", "est"))
+    gm, cm = ga.disc_update(gts, gdraws.disc_idx), ca.disc_update(cts, draws.disc_idx)
+    stages["disc"] = _stage_errors(gm, cm, gts, cts, ("disc",))
+    gm = ga.dagger_update(gts, gtrs, gdraws.dagger_perm)
+    cm = ca.dagger_update(cts, ctrs, draws.dagger_perm)
+    stages["dagger"] = _stage_errors(gm, cm, gts, cts, ("ac",))
+    print(f"train parity, stages on identical inputs, card vs CPU (tol {TRAIN_TOL:g}; disc "
+          f"params {DISC_PARAM_TOL:g}): gae {gae:.3e}; "
+          + "; ".join(f"{k} metrics {m:.3e}, params "
+                      + ", ".join(f"{n} {v:.3e}" for n, v in p.items())
+                      for k, (m, p) in stages.items()), flush=True)
+    bad = gae > TRAIN_TOL or not np.isfinite(gae)
+    for k, (m, p) in stages.items():
+        ptol = DISC_PARAM_TOL if k == "disc" else TRAIN_TOL
+        bad |= not (m <= TRAIN_TOL and all(v <= ptol for v in p.values()))
+    if bad:
+        raise SystemExit("train parity: a train stage on the card disagrees with the CPU's")
+
+
+def phase_train(num_envs, iters):
+    """cli/train_bbc at full width for `iters` iterations; returns the
+    kernels' launches."""
+    import shutil
+    import tempfile
+    from agility_tpu_torch.cli import train_bbc
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.learn.policy import build_policy
+    from agility_tpu_torch.learn.ssinfogail import metrics_to_host
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        args = train_bbc.get_args(["--task", "go2_locomotion", "--num_envs", str(num_envs),
+                                   "--max_iterations", str(iters), "--device", "cuda",
+                                   "--log_root", root, "--log_every", "1"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = train_bbc.build(args)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        marks, host = [], {"start": [], "end": []}
+
+        def mark(stage):
+            """A CUDA event at every stage; the host clock, synchronised, at
+            an iteration's start (before its draws) and end (after the
+            runner's log line, events and saves)."""
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+            if stage in host:
+                torch.cuda.synchronize()
+                host[stage].append(time.perf_counter())
+
+        step_before = env_step_ms(runner)
+        runner.alg.timer = mark
+        _counts_zero()
+        t0 = time.perf_counter()
+        train_bbc.train(runner, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        runner.alg.timer = None
+        peak = torch.cuda.max_memory_allocated()
+        step_after = env_step_ms(runner)
+
+        # per iteration: each stage's time from the events (from the mark
+        # before it; "end" is the runner's work after the updates), and the
+        # iteration's time on the host clock
+        its, prev = [], None
+        for stage, ev in marks:
+            if stage == "start":
+                its.append({})
+            else:
+                its[-1][stage] = prev.elapsed_time(ev)
+            prev = ev
+        wall_ms = [(b - a) * 1e3 for a, b in zip(host["start"], host["end"])]
+        T = runner.cfg.num_steps_per_env
+        # all the work from iteration 1's start to iteration 2's end
+        rate = (2 * T * num_envs / (host["end"][2] - host["start"][1])
+                if len(wall_ms) >= 3 else float("nan"))
+        m = metrics_to_host(runner.last_metrics)
+        ts = runner.train_state
+        finite = all(bool(torch.isfinite(p).all()) for k in ("ac", "est", "disc")
+                     for p in getattr(ts, k).parameters()) and all(map(np.isfinite, m.values()))
+        for i, (ms, it) in enumerate(zip(wall_ms, its)):
+            print(f"BBC train iteration {i}: {ms:.1f} ms on the host clock, {sum(it.values()):.1f} "
+                  "ms of events; stages (ms) " + ", ".join(f"{k} {v:.1f}" for k, v in it.items()),
+                  flush=True)
+        print(f"BBC train: {num_envs} envs x {T} steps x {iters} iterations in {wall:.1f} s "
+              f"(build {t_build:.1f} s); {rate:.1f} env-steps/s over iterations 1-2 (host "
+              f"clock, synchronised, start to end); launches "
+              f"{launches}; ring size {ts.ring.size}; normaliser count "
+              f"{float(ts.disc_norm.count):.1f}; peak device memory {peak / 2**30:.3f} GiB "
+              f"(max_memory_allocated) on {torch.cuda.get_device_name(0)}", flush=True)
+        print(f"BBC train metrics: {json.dumps(m)}", flush=True)
+        print(f"BBC train: the env step alone (zero actions, no trainer) {step_before:.1f} ms "
+              f"before training, {step_after:.1f} ms after; the rollout's step "
+              + ", ".join(f"{it['rollout'] / T:.1f}" for it in its) + " ms", flush=True)
+
+        path = ckpt.latest(runner.log_dir)
+        policy = build_policy(runner.env.cfg, ckpt.params_from_jax(ckpt.read_msgpack(path)),
+                              "cuda")
+        same = all(torch.equal(a, b) for mine, back in ((ts.ac, policy.ac), (ts.est, policy.est))
+                   for a, b in zip(mine.state_dict().values(), back.state_dict().values()))
+        print(f"BBC train: slim checkpoint {os.path.basename(path)} read back by play_bbc's "
+              f"loader, tensors equal {same}", flush=True)
+        want = dict(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
+                    terrain_window=T * iters, scandots=0)
+        if launches != want:
+            raise SystemExit(f"BBC train: launches {launches}, want {want}")
+        if not finite:
+            raise SystemExit("BBC train: a parameter or metric is not finite")
+        if ts.ring.size != iters * T * num_envs:
+            raise SystemExit("BBC train: the ring holds the wrong number of rows")
+        if not float(ts.disc_norm.count) > 1e-4:
+            raise SystemExit("BBC train: the normaliser was never updated")
+        if not same:
+            raise SystemExit("BBC train: the slim checkpoint does not read back equal")
+        train_busy_share(runner, sum(wall_ms[1:3]) / 2 if len(wall_ms) >= 3 else wall_ms[-1])
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def env_step_ms(runner, steps=8):
+    """Milliseconds of one control step of the runner's env with zero
+    actions (no policy, no trainer), on a copy of its state: the host clock
+    around `steps` steps, synchronised.  Kernel launches here are outside
+    any counted window."""
+    env = runner.env
+    z = torch.zeros(env.num_envs, 12, device=env.device)
+    s = runner.env_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(steps):
+            s, _ = env.step(s, z)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def train_busy_share(runner, it_ms):
+    """Device ops and busy time (the union of kernel, copy and fill
+    intervals) of one more train iteration under torch.profiler, against
+    the unprofiled iteration time.  A reading, not a gate."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        out = runner.alg.train_iteration(runner.train_state, runner.env_state, runner.disc_hist,
+                                         runner.current_iteration)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    runner.train_state, runner.env_state, runner.disc_hist, _ = out
+    spans = np.array(sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                            if e.device_type() == torch.autograd.DeviceType.CUDA), dtype=np.int64)
+    busy = 0
+    if len(spans):
+        ends = np.maximum.accumulate(spans[:, 1])
+        gaps = np.maximum(spans[1:, 0] - ends[:-1], 0)
+        busy = int(ends[-1] - spans[0, 0] - gaps.sum())
+    print(f"BBC train profile: one iteration (profiled {wall:.1f} ms): {len(spans)} device ops, "
+          f"device busy {busy / 1e6:.2f} ms, {100 * busy / 1e6 / it_ms:.1f}% of the unprofiled "
+          f"{it_ms:.1f} ms iteration", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card")
@@ -668,11 +950,14 @@ def main():
                         ("K2", lambda: phase_k2(bbc)), ("K3", phase_k3),
                         ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
                         ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
-                        ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS))):
+                        ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS)),
+                        ("train parity", phase_train_parity),
+                        ("BBC train", lambda: phase_train(NUM_ENVS, TRAIN_ITERS))):
         rows[name] = phase()
         print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
 
-    paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"])
+    paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"],
+                 bbc_train=rows["BBC train"])
     keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share")
     kernels = []
     # each kernel's headline numbers are those of its first shape: K1 at the

@@ -20,12 +20,14 @@ import agility_tpu_torch
 from agility_tpu.cli import registry as jreg
 from agility_tpu.envs import config as jcfg
 from agility_tpu.envs import tsc_config as jtsc
+from agility_tpu.learn import ssinfogail as jgail
 from agility_tpu.terrain import generator as jgen
 from agility_tpu.terrain import obstacle as jobst
 from agility_tpu_torch.cli import registry as treg
 from agility_tpu_torch.core import urdf as turdf
 from agility_tpu_torch.envs import config as tcfg
 from agility_tpu_torch.envs import tsc_config as ttsc
+from agility_tpu_torch.learn import ssinfogail as tgail
 from agility_tpu_torch.terrain import generator as tgen
 from agility_tpu_torch.terrain import obstacle as tobst
 
@@ -43,9 +45,32 @@ def _dataclasses(mod):
 def test_registry_configs_equal(task):
     """Each task of the port's registry builds the same config as the JAX
     registry's, field for field."""
-    got, want = treg.get(task)(), jreg.get(TASKS[task])[0]()
+    got, want = treg.get(task)[0](), jreg.get(TASKS[task])[0]()
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert type(got).__module__.startswith("agility_tpu_torch.")
+
+
+def test_algo_cfg_equal():
+    """The port's AlgoCfg has the JAX package's fields and defaults, and the
+    registry's algo half builds it for both BBC tasks; the TSC task has no
+    algo half in the port yet."""
+    names = [f.name for f in dataclasses.fields(jgail.AlgoCfg)]
+    assert [f.name for f in dataclasses.fields(tgail.AlgoCfg)] == names
+    assert dataclasses.asdict(tgail.AlgoCfg()) == dataclasses.asdict(jgail.AlgoCfg())
+    for task in ("go2_locomotion", "go2_locomotion_smoke"):
+        got, want = treg.get(task)[1](), jreg.get(task)[1]()
+        assert type(got) is tgail.AlgoCfg
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    with pytest.raises(NotImplementedError):
+        treg.get("go2_agility")[1]()
+
+
+def test_metric_writer_is_byte_identical():
+    """io/metrics.py (the TensorBoard event writer, no JAX) is a copy."""
+    with open(os.path.join(os.path.dirname(agility_tpu_torch.__file__), "io", "metrics.py"),
+              "rb") as f, open(os.path.join(os.path.dirname(agility_tpu.__file__), "io",
+                                            "metrics.py"), "rb") as g:
+        assert f.read() == g.read()
 
 
 @pytest.mark.parametrize("pair", ["config", "tsc_config", "obstacle"])
@@ -144,5 +169,6 @@ def test_public_device_defaults_are_cuda():
                  "learn.policy_tsc.build_tsc_policy", "physics.heightfield.from_numpy",
                  "physics.constants.ModelConsts.from_model",
                  "envs.go2_locomotion.state_from_jax", "envs.go2_agility.state_from_jax",
-                 "envs.mocap.synthetic"):
+                 "envs.mocap.synthetic", "learn.networks.RunningNormalizer.__init__",
+                 "learn.replay.Ring.__init__"):
         assert f"agility_tpu_torch.{want}" in found, want

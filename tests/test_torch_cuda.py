@@ -171,3 +171,42 @@ def test_scandots_kernel_point_groups(card, k):
     grid, c, w, px, py = window_case(7, 128, seed=k, device="cuda", k=k)
     assert torch.equal(k3.scandots(grid, c, 34, w, px, py),
                        k3.scandots_reference(grid, c, 34, w, px, py))
+
+
+@pytest.mark.cuda
+def test_ppo_update_on_card_matches_cpu(card):
+    """One PPO update (2 epochs x 2 minibatches) of an 8-env trainer on the
+    card against the CPU, from the same weights, transitions and
+    permutation: losses and every parameter within 1e-4 relative (norms of
+    the difference over each network)."""
+    from agility_tpu_torch.envs.config import smoke_cfg
+    from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
+    from agility_tpu_torch.learn import ssinfogail as sg
+    from agility_tpu_torch.learn.networks import gaussian_log_prob
+
+    acfg = sg.AlgoCfg(num_steps_per_env=8, num_preload_transitions=256,
+                      disc_replay_buffer_size=512, num_learning_epochs=2, num_mini_batches=2)
+    algs = [sg.SSInfoGAIL(Go2LocomotionEnv(smoke_cfg(8), d), acfg, seed=0) for d in ("cpu", "cuda")]
+    (ca, cts), (ga, gts) = ((a, a.init_train_state()) for a in algs)
+    for k in ("ac", "est"):
+        getattr(gts, k).load_state_dict(getattr(cts, k).state_dict())
+    g = torch.Generator().manual_seed(0)
+    obs = 0.5 * torch.randn(8, 8, ca.slices.total, generator=g)
+    with torch.no_grad():
+        mean = cts.ac.action_mean(obs.reshape(64, -1)).reshape(8, 8, -1)
+        std = cts.ac.std.detach().clone().expand_as(mean)
+        actions = mean + std * torch.randn(mean.shape, generator=g)
+        trs = sg.Transition(obs, obs, actions, 0.1 * torch.randn(8, 8, generator=g),
+                            torch.rand(8, 8, generator=g) < 0.1, cts.ac.value(obs),
+                            gaussian_log_prob(mean, std, actions), mean, std)
+    adv, ret = ca.compute_gae(trs, torch.zeros(8))
+    perm = torch.randperm(64, generator=g)
+    cm = ca.ppo_update(cts, trs, adv, ret, perm)
+    gm = ga.ppo_update(gts, sg.Transition(*(x.cuda() for x in trs)), adv.cuda(), ret.cuda(),
+                       perm.cuda())
+    for k in cm:
+        assert abs(float(gm[k]) - float(cm[k])) <= 1e-4 * max(abs(float(cm[k])), 1e-3), k
+    for k in ("ac", "est"):
+        a = torch.cat([p.detach().flatten() for p in getattr(gts, k).parameters()]).cpu()
+        b = torch.cat([p.detach().flatten() for p in getattr(cts, k).parameters()])
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-4, k

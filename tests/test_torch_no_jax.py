@@ -1,8 +1,10 @@
-"""The port runs where jax and flax are not installed, and without the JAX
-package: a fresh interpreter with jax, flax and agility_tpu blocked imports
-every module of agility_tpu_torch, chip_smoke.py, kernel_bench.py and
-profile_slice.py, then takes two env steps of 2 envs on the CPU; a second
-one plays two hierarchical TSC steps of 2 envs on a 2-course world."""
+"""The port runs where jax, flax and optax are not installed, and without
+the JAX package: a fresh interpreter with jax, flax, optax and agility_tpu
+blocked imports every module of agility_tpu_torch, chip_smoke.py,
+kernel_bench.py and profile_slice.py, then takes two env steps of 2 envs on
+the CPU; a second one plays two hierarchical TSC steps of 2 envs on a
+2-course world; a third trains the BBC for two iterations of 8 envs through
+cli/train_bbc."""
 import os
 import subprocess
 import sys
@@ -13,7 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
     # any import of them now fails
-    sys.modules["jax"] = sys.modules["flax"] = sys.modules["agility_tpu"] = None
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
     import torch
     import agility_tpu_torch
     for m in pkgutil.walk_packages(agility_tpu_torch.__path__, "agility_tpu_torch."):
@@ -29,7 +32,27 @@ SCRIPT = textwrap.dedent("""
     for _ in range(2):
         s, out = env.step(s, policy(s.obs_buf))
     assert s.obs_buf.shape == (2, 671) and bool(torch.isfinite(s.obs_buf).all())
-    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "agility_tpu."))
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
+                                                                  "agility_tpu."))
+                   for k, v in sys.modules.items() if v is not None)
+    print("ok")
+""")
+
+TRAIN_SCRIPT = textwrap.dedent("""
+    import sys, tempfile
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
+    import torch
+    from agility_tpu_torch.cli import train_bbc
+    torch.set_num_threads(1)   # small ops: one thread is faster and spares the suite's cores
+    with tempfile.TemporaryDirectory() as d:
+        r = train_bbc.run(train_bbc.get_args([
+            "--device", "cpu", "--task", "go2_locomotion_smoke", "--num_envs", "8",
+            "--max_iterations", "2", "--log_root", d]))
+        assert r.current_iteration == 2 and r.train_state.ring.size == 2 * 24 * 8
+        assert all(bool(torch.isfinite(p).all()) for p in r.train_state.ac.parameters())
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
+                                                                  "agility_tpu."))
                    for k, v in sys.modules.items() if v is not None)
     print("ok")
 """)
@@ -37,14 +60,16 @@ SCRIPT = textwrap.dedent("""
 
 TSC_SCRIPT = textwrap.dedent("""
     import sys
-    sys.modules["jax"] = sys.modules["flax"] = sys.modules["agility_tpu"] = None
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
     import torch
     from agility_tpu_torch.cli import play_tsc
     res = play_tsc.run(play_tsc.get_args(["--device", "cpu", "--num_envs", "2",
                                           "--courses", "2", "--steps", "2"]))
     assert res["state"].obs_buf.shape == (2, 800)
     assert bool(torch.isfinite(res["state"].obs_buf).all())
-    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "agility_tpu."))
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
+                                                                  "agility_tpu."))
                    for k, v in sys.modules.items() if v is not None)
     print("ok")
 """)
@@ -65,3 +90,7 @@ def test_port_imports_and_steps_without_jax():
 
 def test_tsc_play_without_jax():
     _run(TSC_SCRIPT)
+
+
+def test_bbc_train_without_jax():
+    _run(TRAIN_SCRIPT)
