@@ -1,8 +1,9 @@
 """Task registry: name -> (env-config factory, algo-config factory)
 (counterpart of agility_tpu/cli/registry.py).
 
-The TSC task ("go2" in the JAX registry) has no algo half until its
-trainer is ported: asking for it raises.
+The TSC task is registered under the JAX registry's name, "go2", and the
+port's earlier "go2_agility".  The JAX registry's 32k tasks
+(go2_locomotion_32k, go2_32k) wait for training over several cards.
 """
 from __future__ import annotations
 
@@ -11,17 +12,14 @@ from typing import Callable, Dict, Tuple
 
 from agility_tpu_torch.envs import config as bbc_config
 from agility_tpu_torch.envs import tsc_config
+from agility_tpu_torch.learn.ppo_tsc import TscAlgoCfg
 from agility_tpu_torch.learn.ssinfogail import AlgoCfg
-
-
-def _tsc_algo_cfg():
-    raise NotImplementedError("TSC teacher training is not ported yet; go2_agility plays only")
-
 
 _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
     "go2_locomotion": (bbc_config.Go2LocomotionCfg, AlgoCfg),
     "go2_locomotion_smoke": (lambda: bbc_config.smoke_cfg(64), AlgoCfg),
-    "go2_agility": (tsc_config.Go2AgilityCfg, _tsc_algo_cfg),
+    "go2": (tsc_config.Go2AgilityCfg, TscAlgoCfg),
+    "go2_agility": (tsc_config.Go2AgilityCfg, TscAlgoCfg),
 }
 
 

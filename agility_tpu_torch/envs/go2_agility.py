@@ -10,7 +10,9 @@ angle) and overhangs (a ceiling surface).  All random draws of reset and
 command noise go through one `torch.Generator` kept on the env; the per-env
 constants (course tables, obstacle heights, seesaw damping, domain
 randomization, scandot grid) are the JAX env's numpy draws from
-`default_rng(cfg.seed)`, in the same order, so they are equal.
+`default_rng(cfg.seed)`, in the same order, so they are equal.  A reset's
+draws (`ResetDraws`) and set_commands' action noise may also be handed in,
+so that a test can feed the JAX env's draws.
 
 Per control step the engine gathers the contact window through kernel K2
 and the observation measures the scandots through kernel K3.
@@ -24,7 +26,7 @@ Observation layout:
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +107,20 @@ class TscStepOutput(NamedTuple):
     terminal_disc_obs: torch.Tensor
     episode_sums: torch.Tensor
     reward_terms: torch.Tensor
+
+
+class ResetDraws(NamedTuple):
+    """One reset's random draws for all N envs (the JAX env splits them
+    from its key: dx, dy, dyaw, the dof scale and lin_ang from ks[0..4],
+    bar and tire from ks[6], obst_idx from ks[7])."""
+    dx: torch.Tensor                  # (N,) U(-rand_x_range, rand_x_range)
+    dy: torch.Tensor                  # (N,) U(-rand_y_range, rand_y_range)
+    dyaw: torch.Tensor                # (N,) U(-rand_yaw_range, rand_yaw_range)
+    obst_idx: Optional[torch.Tensor]  # (N,) int64 start station; None without randomize_start
+    dof_scale: torch.Tensor           # (N, 12) U(0.5, 1.5)
+    lin_ang: torch.Tensor             # (N, 6) U(-0.5, 0.5)
+    bar: torch.Tensor                 # (N,) U(0, 1), mapped onto the bar height range
+    tire: torch.Tensor                # (N,) U(0, 1), mapped onto the tire height range
 
 
 _INT_FIELDS = ("episode_length", "cur_goal_idx", "spawn_goal_idx", "curr_count")
@@ -249,11 +265,24 @@ class Go2AgilityEnv:
         """(N, 3) heightfield weights: [bar height, tire height, plank tilt]."""
         return torch.stack([state.bar_h, state.tire_h, state.seesaw_theta], dim=-1)
 
-    def _sample_heights_where(self, state, mask):
+    def draw_reset(self) -> ResetDraws:
+        """A reset's draws from the env's generator, in the order the reset
+        has always drawn them."""
+        N, e = self.num_envs, self.cfg.env
+        dx = self._uniform(-e.rand_x_range, e.rand_x_range, N)
+        dy = self._uniform(-e.rand_y_range, e.rand_y_range, N)
+        dyaw = self._uniform(-e.rand_yaw_range, e.rand_yaw_range, N)
+        obst_idx = (torch.randint(0, self.obst_types.shape[1], (N,), generator=self.gen,
+                                  device=self.device) if e.randomize_start else None)
+        dof_scale = self._uniform(0.5, 1.5, N, 12)
+        lin_ang = self._uniform(-0.5, 0.5, N, 6)
+        return ResetDraws(dx, dy, dyaw, obst_idx, dof_scale, lin_ang, self._rand(N), self._rand(N))
+
+    def _sample_heights_where(self, state, mask, draws: Optional[ResetDraws] = None):
         """Per-env bar/tire heights drawn at reset, within ranges widened by
-        the curriculum count."""
+        the curriculum count; `draws` supplies the unit uniforms (bar, tire),
+        else they come from the env's generator."""
         ob = self.cfg.obstacle
-        N = self.num_envs
         if ob.curriculum:
             lo_b, lo_t = ob.bar_jump_init_range[0], ob.tire_jump_init_range[0]
             widen = state.curr_count.float() * ob.curr_step
@@ -261,8 +290,12 @@ class Go2AgilityEnv:
             hi_t = torch.clamp(ob.tire_jump_init_range[1] + widen, max=ob.tire_jump_max_range[1])
         else:
             (lo_b, hi_b), (lo_t, hi_t) = ob.bar_jump_range, ob.tire_jump_range
-        bar_new = self._uniform(lo_b, hi_b, N)
-        tire_new = self._uniform(lo_t, hi_t, N)
+        if draws is None:
+            bar_u, tire_u = self._rand(self.num_envs), self._rand(self.num_envs)
+        else:
+            bar_u, tire_u = draws.bar, draws.tire
+        bar_new = lo_b + (hi_b - lo_b) * bar_u
+        tire_new = lo_t + (hi_t - lo_t) * tire_u
         return torch.where(mask, bar_new, state.bar_h), torch.where(mask, tire_new, state.tire_h)
 
     def _gather_goals(self, state, idx):
@@ -317,9 +350,12 @@ class Go2AgilityEnv:
     # the hierarchical command bridge
     # ==================================================================
 
-    def set_commands(self, state: AgilityState, hl_actions: torch.Tensor):
+    def set_commands(self, state: AgilityState, hl_actions: torch.Tensor,
+                     noise: Optional[torch.Tensor] = None):
         """Translate high-level hybrid actions (N, 1 + D*C) into BBC commands
-        and latents.  Returns (state, next_commands (N, 11))."""
+        and latents.  With randomize_action the commands are scaled by
+        `noise` (N, 5), U(action_noise), drawn from the env's generator where
+        it is not given.  Returns (state, next_commands (N, 11))."""
         cfg = self.cfg
         nc = cfg.env.num_actions_c
         d = hl_actions[:, 0].long()
@@ -339,7 +375,9 @@ class Go2AgilityEnv:
         loco_h = (lh[0] + (lh[1] - lh[0]) * u[:, 4]) * (~jump)
         commands = torch.stack([vx, vy, wz, jump_h, loco_h], dim=-1)
         if cfg.domain_rand.randomize_action:
-            commands = commands * self._uniform(*cfg.domain_rand.action_noise, *commands.shape)
+            if noise is None:
+                noise = self._uniform(*cfg.domain_rand.action_noise, *commands.shape)
+            commands = commands * noise
         hl_hist = torch.cat([state.action_hl_history[:, 1:], hl_actions[:, None, :]], dim=1)
         state = state._replace(commands=commands, latent_c=latent_c, latent_eps=latent_eps,
                                action_hl_history=hl_hist)
@@ -483,19 +521,22 @@ class Go2AgilityEnv:
         g = torch.clamp(goal_idx, 0, self.n_goals_total - self.last_goal_repeat - 1)
         return torch.gather(self.obst_types, 1, (g // self.num_goals)[:, None])[:, 0]
 
-    def _reset_where(self, state: AgilityState, mask) -> AgilityState:
+    def _reset_where(self, state: AgilityState, mask,
+                     draws: Optional[ResetDraws] = None) -> AgilityState:
         """Masked reset: envs where `mask` get a fresh start pose at their
         course's start (or, with randomize_start, a random station), fresh
-        obstacle heights and zeroed buffers."""
+        obstacle heights and zeroed buffers.  `draws` defaults to a fresh
+        draw_reset()."""
         N, e = self.num_envs, self.cfg.env
-        dx = self._uniform(-e.rand_x_range, e.rand_x_range, N) * e.randomize_start_x
-        dy = self._uniform(-e.rand_y_range, e.rand_y_range, N) * e.randomize_start_y
-        dyaw = self._uniform(-e.rand_yaw_range, e.rand_yaw_range, N) * e.randomize_start_yaw
+        if draws is None:
+            draws = self.draw_reset()
+        dx = draws.dx * e.randomize_start_x
+        dy = draws.dy * e.randomize_start_y
+        dyaw = draws.dyaw * e.randomize_start_yaw
         z0 = torch.full((N,), self.cfg.init_state.pos[2], device=self.device)
         if e.randomize_start:
             # spawn at a random station's approach goal, with its heading
-            n_obst = self.obst_types.shape[1]
-            obst_idx = torch.randint(0, n_obst, (N,), generator=self.gen, device=self.device)
+            obst_idx = draws.obst_idx
             goal_idx = obst_idx * self.cfg.obstacle.num_goals
             ar = torch.arange(N, device=self.device)
             spawn = self.env_goals[ar, goal_idx]
@@ -507,8 +548,8 @@ class Go2AgilityEnv:
             base_pos = self.robot_org + torch.stack([dx, dy, z0], dim=-1)
         zero_n = torch.zeros(N, device=self.device)
         base_quat = qm.quat_from_euler_xyz(zero_n, zero_n, yaw0)
-        dof_pos = self.mc.default_dof_pos * self._uniform(0.5, 1.5, N, 12)
-        lin_ang = self._uniform(-0.5, 0.5, N, 6) * e.randomize_start_vel
+        dof_pos = self.mc.default_dof_pos * draws.dof_scale
+        lin_ang = draws.lin_ang * e.randomize_start_vel
         u_new = torch.cat([lin_ang, torch.zeros((N, 12), device=self.device)], dim=-1)
 
         m1 = mask[:, None]
@@ -519,7 +560,7 @@ class Go2AgilityEnv:
             u=torch.where(m1, u_new, state.sim.u))
         zero = lambda x: torch.where(mask.reshape((N,) + (1,) * (x.dim() - 1)),
                                      torch.zeros_like(x), x)
-        bar_h, tire_h = self._sample_heights_where(state, mask)
+        bar_h, tire_h = self._sample_heights_where(state, mask, draws)
         return state._replace(
             sim=sim, bar_h=bar_h, tire_h=tire_h,
             seesaw_theta=torch.where(mask, obst_gen.SEESAW_THETA_REST, state.seesaw_theta),

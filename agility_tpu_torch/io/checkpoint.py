@@ -7,8 +7,8 @@ scalar), whose payload is a msgpack (shape, dtype name, raw bytes) triple;
 `write_msgpack` encodes the same subset, byte for byte as flax's
 `serialization.to_bytes` does for a tree of dicts, arrays and scalars.
 `params_from_jax` (BBC) and `params_from_jax_tsc` (TSC teacher) carry the
-flax parameter trees across to the port's modules, and `params_to_jax`
-carries the BBC's back:
+flax parameter trees across to the port's modules, and `params_to_jax` and
+`params_to_jax_tsc` carry them back:
   * a flax Dense kernel is (in, out); nn.Linear.weight is (out, in);
   * a flax Conv kernel is (k, in, out) over (..., T, C) input; nn.Conv1d's
     weight is (out, in, k) over (B, C, T).
@@ -22,6 +22,8 @@ A BBC training run writes two artifacts (learn/runner.py):
     with torch.save: the optimisers, the replay ring and the normaliser, the
     counters, task_obs_weight, the generators' states, the env state and
     the disc window.  The JAX package does not read it.
+A TSC teacher run (learn/runner_tsc.py) writes the same two kinds: the
+slim tree is the JAX TSC runner's (ac_params, est_params, lr, iteration).
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from agility_tpu_torch.learn import networks as nets
+from agility_tpu_torch.learn.ppo_tsc import BBCFrozen
 
 
 class _Reader:
@@ -295,12 +300,40 @@ def params_from_jax_tsc(tree) -> Dict[str, Dict[str, torch.Tensor]]:
     return {"actor_critic": sd, "estimator": est}
 
 
-def load_bbc_frozen(path: str) -> Dict[str, torch.Tensor]:
-    """The frozen BBC actor-critic's state dict from a BBC checkpoint file
-    (counterpart of agility_tpu/learn/runner_tsc.load_bbc_frozen; the TSC
-    path runs only its actor, so the estimator and discriminator are not
-    read)."""
-    return params_from_jax(read_msgpack(path))["actor_critic"]
+def params_to_jax_tsc(ac_sd, est_sd) -> Dict[str, Any]:
+    """The flax parameter trees {"ac_params", "est_params"} of a TSC
+    teacher's state dicts (the inverse of params_from_jax_tsc)."""
+    ac = {"std": ac_sd["std"].detach().cpu().numpy()}
+    for m in ("priv_encoder", "scan_encoder", "actor_trunk", "critic_trunk"):
+        ac[m] = _to_mlp(ac_sd, m)
+    ac["history_encoder"] = {"Dense_0": _to_dense(ac_sd, "history_encoder.proj"),
+                             "Conv_0": _to_conv(ac_sd, "history_encoder.conv0"),
+                             "Conv_1": _to_conv(ac_sd, "history_encoder.conv1"),
+                             "Dense_1": _to_dense(ac_sd, "history_encoder.out")}
+    for h in ("actor_d", "actor_c", "critic_head"):
+        ac[h] = _to_dense(ac_sd, h)
+    return {"ac_params": {"params": ac},
+            "est_params": {"params": {"MLP_0": _to_mlp(est_sd, "mlp")}}}
+
+
+def load_bbc_frozen(path: Optional[str], seed: int = 0) -> BBCFrozen:
+    """The frozen BBC (actor-critic, estimator, discriminator and its
+    normaliser) as host state dicts, from a BBC checkpoint file
+    (counterpart of agility_tpu/learn/runner_tsc.load_bbc_frozen).  With no
+    path, flax-style initial values drawn from `seed` and a fresh
+    normaliser (an untrained low level, for smoke runs and the bench)."""
+    if path:
+        tree = read_msgpack(path)
+        sd = params_from_jax(tree)
+        norm = {k: torch.as_tensor(np.asarray(tree["disc_norm"][k], np.float32))
+                for k in ("mean", "var", "count")}
+        return BBCFrozen(sd["actor_critic"], sd["estimator"], sd["discriminator"], norm)
+    g = torch.Generator().manual_seed(seed)
+    ac, est, disc = (nets.flax_init_(m, g).state_dict() for m in (
+        nets.ActorCritic(nets.ObsSlices(57, 4, 29, 10, 11), num_actions=12),
+        nets.Estimator(57, 4), nets.Discriminator(98, dim_c=5)))
+    norm = {"mean": torch.zeros(98), "var": torch.ones(98), "count": torch.tensor(1e-4)}
+    return BBCFrozen(ac, est, disc, norm)
 
 
 # ---------------------------------------------------------------------------

@@ -4,13 +4,22 @@ with its scan encoder, and the critic.
 
 Parameter names follow the flax modules (priv_encoder, history_encoder,
 scan_encoder, actor_trunk, actor_d, actor_c, critic_trunk, critic_head,
-std), so io/checkpoint.params_from_jax_tsc maps a flax checkpoint leaf by
-leaf.  The sampling, log-prob and entropy helpers serve training and are
-not ported yet.
+std), so io/checkpoint.params_from_jax_tsc and params_to_jax_tsc map a
+flax checkpoint leaf by leaf; networks.flax_init_ gives the modules flax's
+initial values.
+
+The hybrid action is [mode | D*C command columns]: the mode is drawn from
+the discrete head's softmax as argmax(logits + Gumbel noise), as
+jax.random.categorical draws it, and the commands from N(mean, std).  The
+continuous log-prob sums over all D*C columns and the continuous entropy is
+their mean (the reference's choices).  The JAX package's `heads_switch`
+(both latents in one jitted program) is not ported: `heads` takes the
+DAgger flag as a Python bool.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -102,5 +111,44 @@ class ActorCriticTSC(nn.Module):
     def scan_latent(self, obs):
         return self.scan_encoder(obs[:, self.slices.scan])
 
+    def hist_latent(self, obs):
+        return self._latent(obs, True)
+
+    def priv_latent(self, obs):
+        return self._latent(obs, False)
+
     def value(self, critic_obs):
         return self.critic_head(self.critic_trunk(critic_obs))[..., 0]
+
+    def forward(self, obs, critic_obs):
+        """Both latents, the heads on the privileged latent and the value
+        (the flax module's __call__, which its init traces)."""
+        self.hist_latent(obs)
+        d, c, std = self.heads(obs, False)
+        return d, c, std, self.value(critic_obs)
+
+
+def hybrid_sample(logits_d, mean_c, std, gumbel, normal) -> torch.Tensor:
+    """(N, 1 + D*C) actions [mode | commands] from Gumbel noise (N, D) and
+    standard normals (N, D*C)."""
+    d = torch.argmax(logits_d + gumbel, dim=-1)
+    c = mean_c + std * normal
+    return torch.cat([d[:, None].to(mean_c.dtype), c], dim=-1)
+
+
+def hybrid_log_prob(logits_d, mean_c, std, actions) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logp_d, logp_c) of actions [mode | commands]; logp_c sums over the
+    full D*C head."""
+    d = actions[:, 0].long()
+    logp_d = torch.gather(F.log_softmax(logits_d, dim=-1), 1, d[:, None])[:, 0]
+    logp_c = torch.sum(-0.5 * torch.square(actions[:, 1:] - mean_c) / std ** 2 - torch.log(std)
+                       - 0.5 * math.log(2 * math.pi), dim=-1)
+    return logp_d, logp_c
+
+
+def hybrid_entropy(logits_d, std, mean_shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ent_d, ent_c) per row; ent_c is the mean over the D*C columns."""
+    p = torch.softmax(logits_d, dim=-1)
+    ent_d = -torch.sum(p * torch.log(p + 1e-20), dim=-1)
+    ent_c = (0.5 + 0.5 * math.log(2 * math.pi) + torch.log(std)).expand(mean_shape).mean(dim=-1)
+    return ent_d, ent_c

@@ -7,8 +7,9 @@ agility_tpu/cli/play_tsc.py:act and agility_tpu/learn/ppo_tsc.py:bbc_act).
      of the discrete head and the command block is the continuous mean;
   3. env.set_commands turns [mode, means] into BBC commands;
   4. the frozen BBC actor runs on obs_bbc with its last 11 columns replaced
-     by the fresh commands.  Unlike learn/policy.InferencePolicy it does not
-     write the BBC estimator's prediction into the observation.
+     by the fresh commands (`bbc_act`, which the trainer's rollout runs
+     too).  Unlike learn/policy.InferencePolicy it does not write the BBC
+     estimator's prediction into the observation.
 """
 from __future__ import annotations
 
@@ -17,6 +18,15 @@ from torch import nn
 
 from agility_tpu_torch.learn import networks as nets
 from agility_tpu_torch.learn import networks_tsc as tnets
+
+
+@torch.no_grad()
+def bbc_act(bbc: nets.ActorCritic, obs_bbc: torch.Tensor,
+            next_commands: torch.Tensor) -> torch.Tensor:
+    """Frozen BBC joint actions with the high level's fresh commands."""
+    obs = obs_bbc.clone()
+    obs[:, -next_commands.shape[1]:] = next_commands
+    return bbc.action_mean(obs, hist_encoding=True)
 
 
 class TscPolicy(nn.Module):
@@ -36,12 +46,8 @@ class TscPolicy(nn.Module):
         d = torch.argmax(logits_d, dim=-1)
         return torch.cat([d[:, None].to(mean_c.dtype), mean_c], dim=-1)
 
-    @torch.no_grad()
     def bbc_act(self, obs_bbc: torch.Tensor, next_commands: torch.Tensor) -> torch.Tensor:
-        """Frozen BBC joint actions with the high level's fresh commands."""
-        obs = obs_bbc.clone()
-        obs[:, -next_commands.shape[1]:] = next_commands
-        return self.bbc.action_mean(obs, hist_encoding=True)
+        return bbc_act(self.bbc, obs_bbc, next_commands)
 
     def step(self, env, state):
         """One hierarchical control step: act, set_commands, BBC, env.step."""
@@ -49,11 +55,12 @@ class TscPolicy(nn.Module):
         return env.step(state, self.bbc_act(state.obs_bbc_buf, next_commands))
 
 
-def build_tsc_policy(env_cfg, tsc_state_dicts=None, bbc_state_dict=None, device="cuda",
+def build_tsc_policy(env_cfg, tsc_state_dicts=None, bbc_frozen=None, device="cuda",
                      seed: int = 0) -> TscPolicy:
     """The TSC teacher + frozen BBC at the env config's widths; weights from
-    io/checkpoint.params_from_jax_tsc / load_bbc_frozen or, without them,
-    drawn at random from `seed`."""
+    io/checkpoint.params_from_jax_tsc and the actor-critic of
+    io/checkpoint.load_bbc_frozen or, without them, drawn at random from
+    `seed`."""
     e = env_cfg.env
     slices = tnets.TscObsSlices(e.n_proprio, e.n_scan, e.n_priv, e.n_priv_latent,
                                 e.history_len, e.n_auxiliary)
@@ -66,6 +73,6 @@ def build_tsc_policy(env_cfg, tsc_state_dicts=None, bbc_state_dict=None, device=
     if tsc_state_dicts is not None:
         ac.load_state_dict(tsc_state_dicts["actor_critic"])
         est.load_state_dict(tsc_state_dicts["estimator"])
-    if bbc_state_dict is not None:
-        bbc.load_state_dict(bbc_state_dict)
+    if bbc_frozen is not None:
+        bbc.load_state_dict(bbc_frozen.ac)
     return TscPolicy(ac, est, bbc).to(device).eval()

@@ -25,20 +25,50 @@ from agility_tpu_torch.learn.ssinfogail import AlgoCfg, SSInfoGAIL, metrics_to_h
 from agility_tpu_torch.physics import engine as eng
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def _shapes(tree, prefix=""):
+def tree_shapes(tree, prefix=""):
     """{path: shape} of the tensors of a nested dict."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out.update(_shapes(v, f"{prefix}{k}."))
+            out.update(tree_shapes(v, f"{prefix}{k}."))
         elif isinstance(v, torch.Tensor):
             out[prefix + str(k)] = tuple(v.shape)
     return out
+
+
+def save_checkpoints(runner, step: int, full: bool) -> str:
+    """A runner's slim tree (`checkpoint_tree`) as model_<step>.msgpack in
+    its log directory and, when `full`, its exact-resume state
+    (`full_state_tree`) beside it, each pruned to the runner's rotation.
+    Returns the slim checkpoint's path."""
+    path = ckpt.save(os.path.join(runner.log_dir, "model.msgpack"), runner.checkpoint_tree(),
+                     step=step)
+    ckpt.prune(runner.log_dir, "model", keep_latest=runner.keep_latest_slim,
+               keep_every=runner.keep_every_slim)
+    if full:
+        torch.save(runner.full_state_tree(), ckpt.state_path(path))
+        ckpt.prune(runner.log_dir, "state", keep_latest=runner.keep_latest_full, ext=".pt")
+    return path
+
+
+def read_full_state(runner, path: str):
+    """The exact-resume state beside slim checkpoint `path`, where there is
+    one and its shapes match the runner's own; else None."""
+    state_path = ckpt.sibling_state(path)
+    if not state_path:
+        return None
+    saved = torch.load(state_path, map_location="cpu")
+    want, got = tree_shapes(runner.full_state_tree()), tree_shapes(saved)
+    bad = sorted(k for k in want if want[k] != got.get(k))
+    if bad:
+        print(f"full-state restore mismatch ({bad[:3]}); loading weights only")
+        return None
+    return saved
 
 
 class OnPolicyRunner:
@@ -101,7 +131,7 @@ class OnPolicyRunner:
             self.alg.mark("end")
         if self.log_dir:
             self.save(self.current_iteration)   # final save: exact-resume
-        _sync(env.device)
+        sync(env.device)
         total = time.time() - t_start
         print(f"trained {num_iterations} iters in {total:.1f}s "
               f"({num_iterations * steps_per_iter / total:,.0f} env-steps/s)")
@@ -146,30 +176,17 @@ class OnPolicyRunner:
     def save(self, step: int, full: bool = True) -> str:
         """The slim checkpoint every call; the exact-resume state beside it
         when `full`."""
-        path = ckpt.save(os.path.join(self.log_dir, "model.msgpack"), self.checkpoint_tree(),
-                         step=step)
-        ckpt.prune(self.log_dir, "model", keep_latest=self.keep_latest_slim,
-                   keep_every=self.keep_every_slim)
-        if full:
-            torch.save(self.full_state_tree(), ckpt.state_path(path))
-            ckpt.prune(self.log_dir, "state", keep_latest=self.keep_latest_full, ext=".pt")
-        return path
+        return save_checkpoints(self, step, full)
 
     def load(self, path: str):
         """Restore from a slim checkpoint path: exactly from the state file
         beside it where there is one and its shapes match this run's, else
         the weights, the normaliser, the prior and the learning rate."""
-        state_path = ckpt.sibling_state(path)
-        if state_path:
-            saved = torch.load(state_path, map_location="cpu")
-            want = _shapes(self.full_state_tree())
-            got = _shapes(saved)
-            bad = sorted(k for k in want if want[k] != got.get(k))
-            if not bad:
-                self._restore(saved)
-                self.current_iteration = max(int(saved["iteration"]), ckpt.step_of(path) or 0)
-                return
-            print(f"full-state restore mismatch ({bad[:3]}); loading weights only")
+        saved = read_full_state(self, path)
+        if saved is not None:
+            self._restore(saved)
+            self.current_iteration = max(int(saved["iteration"]), ckpt.step_of(path) or 0)
+            return
         tree = ckpt.read_msgpack(path)
         sd = ckpt.params_from_jax(tree)
         ts = self.train_state

@@ -132,6 +132,44 @@ def clip_grad_global_norm_(params, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+@torch.no_grad()
+def compute_gae(rewards, dones, values, last_values, gamma: float, lam: float):
+    """(normalised advantages, returns) of a (T, N) rollout
+    (rollout_storage.py:97-111); the advantages' std is the population one."""
+    next_values = torch.cat([values[1:], last_values[None]], dim=0)
+    advantages = torch.empty_like(values)
+    adv = torch.zeros_like(last_values)
+    for t in reversed(range(values.shape[0])):
+        not_done = 1.0 - dones[t].float()
+        delta = rewards[t] + not_done * gamma * next_values[t] - values[t]
+        adv = delta + not_done * gamma * lam * adv
+        advantages[t] = adv
+    returns = advantages + values
+    advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+    return advantages, returns
+
+
+def adapt_lr(lr: np.float32, kl_mean: float, desired_kl: float) -> np.float32:
+    """The adaptive-KL learning rate (gail.py:367-379), in float32: /1.5
+    above twice the target KL (not below 1e-5), x1.5 below half of it (not
+    above 1e-2)."""
+    if kl_mean > desired_kl * 2.0:
+        lr = max(np.float32(1e-5), lr / np.float32(1.5))
+    if desired_kl / 2.0 > kl_mean > 0.0:
+        lr = min(np.float32(1e-2), lr * np.float32(1.5))
+    return np.float32(lr)
+
+
+def priv_reg_coef(schedule, counter: int) -> float:
+    """The priv-reg coefficient (gail.py:350-357) of schedule (begin, end,
+    start, span): clamp((counter - start) / span, 0, 1) x (end - begin) +
+    begin, in float32."""
+    stage = min(max(np.float32(counter) - np.float32(schedule[2]), np.float32(0.0))
+                / np.float32(schedule[3]), np.float32(1.0))
+    return float(np.float32(stage * np.float32(schedule[1] - schedule[0])
+                            + np.float32(schedule[0])))
+
+
 class SSInfoGAIL:
     def __init__(self, env: Go2LocomotionEnv, cfg: AlgoCfg = AlgoCfg(), seed: int = 1):
         # the JAX trainer's other loss functions and its fixed learning rate
@@ -352,34 +390,13 @@ class SSInfoGAIL:
     # GAE (rollout_storage.py:97-111)
     # ------------------------------------------------------------------
 
-    @torch.no_grad()
     def compute_gae(self, trs: Transition, last_values):
-        cfg = self.cfg
-        next_values = torch.cat([trs.values[1:], last_values[None]], dim=0)
-        advantages = torch.empty_like(trs.values)
-        adv = torch.zeros_like(last_values)
-        for t in reversed(range(trs.values.shape[0])):
-            not_done = 1.0 - trs.dones[t].float()
-            delta = trs.rewards[t] + not_done * cfg.gamma * next_values[t] - trs.values[t]
-            adv = delta + not_done * cfg.gamma * cfg.lam * adv
-            advantages[t] = adv
-        returns = advantages + trs.values
-        advantages = ((advantages - advantages.mean())
-                      / (advantages.std(correction=0) + 1e-8))
-        return advantages, returns
+        return compute_gae(trs.rewards, trs.dones, trs.values, last_values, self.cfg.gamma,
+                           self.cfg.lam)
 
     # ------------------------------------------------------------------
     # PPO update (gail.py:328-413)
     # ------------------------------------------------------------------
-
-    def _adapt_lr(self, lr: np.float32, kl_mean: float) -> np.float32:
-        """The adaptive-KL learning rate (gail.py:367-379), in float32."""
-        cfg = self.cfg
-        if kl_mean > cfg.desired_kl * 2.0:
-            lr = max(np.float32(1e-5), lr / np.float32(1.5))
-        if cfg.desired_kl / 2.0 > kl_mean > 0.0:
-            lr = min(np.float32(1e-2), lr * np.float32(1.5))
-        return np.float32(lr)
 
     def ppo_update(self, ts: TrainState, trs: Transition, advantages, returns, perm=None):
         cfg = self.cfg
@@ -393,11 +410,7 @@ class SSInfoGAIL:
         flat = Transition(*(x.reshape((B,) + x.shape[2:]) for x in trs))
         adv_f, ret_f = advantages.reshape(B), returns.reshape(B)
 
-        # priv reg coefficient (gail.py:350-357)
-        sch = cfg.priv_reg_coef_schedule
-        stage = min(max(np.float32(ts.priv_reg_counter) - np.float32(sch[2]), np.float32(0.0))
-                    / np.float32(sch[3]), np.float32(1.0))
-        priv_reg_coef = float(np.float32(stage * np.float32(sch[1] - sch[0]) + np.float32(sch[0])))
+        coef = priv_reg_coef(cfg.priv_reg_coef_schedule, ts.priv_reg_counter)
 
         ac, est = ts.ac, ts.est
         ac_params = list(ac.parameters())
@@ -449,7 +462,7 @@ class SSInfoGAIL:
                     + cfg.value_loss_coef * value_loss
                     + cfg.bounds_loss_coef * torch.mean(b_loss)
                     - cfg.entropy_coef * torch.mean(entropy)
-                    + priv_reg_coef * priv_reg_loss)
+                    + coef * priv_reg_loss)
             loss.backward()
 
             # adaptive KL LR (gail.py:367-379): the pre-update policy of this
@@ -460,7 +473,7 @@ class SSInfoGAIL:
                                + (torch.square(old_std) + torch.square(old_mean - m))
                                / (2.0 * torch.square(sd)) - 0.5, dim=-1)
                 kl_mean = torch.mean(kl)
-            lr = self._adapt_lr(lr, float(kl_mean))
+            lr = adapt_lr(lr, float(kl_mean), cfg.desired_kl)
             for group in ts.ac_opt.param_groups:
                 group["lr"] = float(lr)
             clip_grad_global_norm_(ac_params, cfg.max_grad_norm)

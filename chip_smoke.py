@@ -2,7 +2,8 @@
 repository's sources, checks each against its plain-torch version at the main
 paths' shapes, then drives the port's two serving paths at full width — the
 BBC policy rollout (agility_tpu_torch.cli.play_bbc) and the TSC obstacle-
-course evaluation (agility_tpu_torch.cli.play_tsc) — and checks what comes out.
+course evaluation (agility_tpu_torch.cli.play_tsc) — and its two training
+paths (cli/train_bbc, cli/train_tsc), and checks what comes out.
 
     python3 chip_smoke.py            # needs one CUDA card; exits nonzero without one
 
@@ -55,7 +56,7 @@ Phases (any failure exits nonzero and prints no result line):
                median base height over the terrain in [0.15, 0.45] m.
   8. TSC slice — play_tsc at 6144 envs on 64 courses with the TSC teacher
                logs/agility/r5/model_12000.msgpack and the frozen BBC
-               logs/bbc_r5/bbc_final.msgpack for 200 control steps; K1 launches =
+               logs/bbc_r5/bbc_final.msgpack for 100 control steps; K1 launches =
                4 x (steps + 1), K2 = K3 = steps + 1, every state finite, median
                base height over the folded floor in [0.15, 0.45] m.
   9. train parity — one BBC train iteration of 64 envs (T = 8, the rough
@@ -81,15 +82,38 @@ Phases (any failure exits nonzero and prints no result line):
                step alone (zero actions) timed before and after training; then
                one more iteration under torch.profiler for the device's busy
                share.
-The line before the last is the kernels' JSON record; the last line is the
-device record.
+ 11. TSC train parity — one TSC teacher train iteration of 64 envs on 8
+               courses (T = 8, the go2 config with randomize_start and the
+               base mass and CoM randomised, command noise off: its draws come
+               from the env's generator, which differs on the card) on the
+               card against the CPU, from one start state, the same weights,
+               the frozen bbc_final and the same draws: the rollout's end
+               states against the SoA tolerances, its modes equal and its
+               stored rewards, values, both log-probs and means within
+               ROLLOUT_TOL (envs reset on either side excluded; both must
+               reset the same envs); then GAE, PPO and DAgger on identical
+               inputs within TRAIN_TOL, the learning rate equal.
+ 12. TSC train — cli/train_tsc at 6144 envs on 64 courses with the frozen
+               logs/bbc_r5/bbc_final.msgpack, the reference's teacher flags
+               (--randomize_start --randomize_base_mass --randomize_base_com
+               --push_robots) and the full TscAlgoCfg for 3 iterations
+               (iteration 0 runs DAgger): timed as BBC train; K1 launches = 4
+               x 24 x 3, K2 = K3 = 24 x 3, every parameter and metric finite,
+               priv_reg_counter 4, std >= min_std, the slim checkpoint read
+               back by params_from_jax_tsc to equal tensors; then one more
+               iteration under torch.profiler.
+The line before the kernels' JSON record gives the script's total wall
+time; the line before the last is the kernels' JSON record; the last line
+is the device record.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -105,8 +129,8 @@ K1_RTOL = 1e-4
 NUM_ENVS = 4096     # the BBC path's width
 STEPS = 250         # control steps of the BBC slice phase
 TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
-TSC_STEPS = 200     # control steps of the TSC slice phase
-TRAIN_ITERS = 3     # iterations of the BBC train phase
+TSC_STEPS = 100     # control steps of the TSC slice phase (cut from 200 for the script's time)
+TRAIN_ITERS = 3     # iterations of the BBC and TSC train phases
 TRAIN_TOL = 1e-4    # card vs CPU, relative, per train stage
 # the disc update's parameters: a trunk unit whose pre-activation lies within
 # rounding of zero on some row sends the two sides' gradients apart there
@@ -768,85 +792,174 @@ def phase_train_parity(num_envs=64, steps=8):
         raise SystemExit("train parity: a train stage on the card disagrees with the CPU's")
 
 
+def phase_tsc_train_parity(num_envs=64, courses=8, steps=8):
+    """One TSC teacher train iteration on the card (kernels) against the CPU
+    (plain versions): the rollout from one state, then each update stage on
+    identical inputs."""
+    from agility_tpu_torch.cli import registry
+    from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.learn.ppo_tsc import TscAlgoCfg, TscDraws, TscPPO, TscTransition
+
+    cfg = registry.apply_overrides(registry.get("go2")[0](), **{
+        "env.num_envs": num_envs, "obstacle.courses": courses, "env.randomize_start": True,
+        "domain_rand.randomize_base_mass": True, "domain_rand.randomize_base_com": True,
+        "domain_rand.randomize_action": False})
+    acfg = TscAlgoCfg(num_steps_per_env=steps)
+    bbc = ckpt.load_bbc_frozen(TSC_BBC)
+    ga = TscPPO(Go2AgilityEnv(cfg, "cuda", seed=0), bbc, acfg, seed=0)
+    ca = TscPPO(Go2AgilityEnv(cfg, "cpu", seed=0), bbc, acfg, seed=0)
+    gts, cts = ga.init_train_state(), ca.init_train_state()
+    for k in ("ac", "est"):
+        getattr(cts, k).load_state_dict(getattr(gts, k).state_dict())
+    es = ga.env.init_state()
+    dh = es.disc_obs[:, None].repeat(1, cfg.env.disc_obs_len, 1)
+    draws = ca.draw()
+    gdraws = TscDraws(*(d.cuda() for d in draws))
+    cuda = lambda t: TscTransition(*(x.cuda() for x in t))
+
+    # the rollout (it = 0: through the DAgger latent)
+    ges, _, groll, _ = ga.rollout(gts, es, dh, True, gdraws.gumbel, gdraws.normal)
+    ces, _, ctrs, _ = ca.rollout(cts, _to(es, "cpu"), dh.cpu(), True, draws.gumbel,
+                                 draws.normal)
+    reset_g, reset_c = groll.dones.any(0).cpu(), ctrs.dones.any(0)
+    keep = ~(reset_g | reset_c)
+    errs = {k: float((getattr(ges.sim, k).cpu() - getattr(ces.sim, k))[keep].abs().max())
+            for k in SOA_TOL}
+    modes = torch.equal(groll.actions[..., 0].cpu()[:, keep], ctrs.actions[..., 0][:, keep])
+    print(f"TSC train parity {num_envs} envs x {courses} courses x {steps} steps, rollout card "
+          f"vs CPU: {int((~keep).sum())} envs reset; modes equal {modes}; "
+          + ", ".join(f"{k} {v:.3e} (tol {SOA_TOL[k]:g})" for k, v in errs.items()), flush=True)
+    rerr = {k: _rel(getattr(groll, k).cpu()[:, keep], getattr(ctrs, k)[:, keep])
+            for k in ("rewards", "values", "logp_d", "logp_c", "mean")}
+    print("TSC train parity, the rollout's transitions card vs CPU (relative, tol "
+          f"{ROLLOUT_TOL:g}): " + ", ".join(f"{k} {v:.3e}" for k, v in rerr.items()), flush=True)
+    if not torch.equal(reset_g, reset_c):
+        raise SystemExit("TSC train parity: the card and the CPU reset different envs")
+    if not (modes and all(np.isfinite(v) and v <= SOA_TOL[k] for k, v in errs.items())):
+        raise SystemExit("TSC train parity: the card's rollout disagrees with the CPU's")
+    if not all(np.isfinite(v) and v <= ROLLOUT_TOL for v in rerr.values()):
+        raise SystemExit("TSC train parity: the card's rollout stored other transitions")
+
+    # the stages on identical inputs: the CPU rollout on both sides
+    with torch.no_grad():
+        clast = cts.ac.value(ces.obs_buf)
+        glast = gts.ac.value(ces.obs_buf.cuda())
+    cadv, cret = ca.compute_gae(ctrs, clast)
+    gadv, gret = ga.compute_gae(cuda(ctrs), glast)
+    gae = max(_rel(gadv, cadv), _rel(gret, cret))
+    gtrs = cuda(ctrs)
+    stages = {}
+    gm = ga.ppo_update(gts, gtrs, cadv.cuda(), cret.cuda(), gdraws.ppo_perm)
+    cm = ca.ppo_update(cts, ctrs, cadv, cret, draws.ppo_perm)
+    stages["ppo"] = _stage_errors(gm, cm, gts, cts, ("ac", "est"))
+    gm = {"dagger": ga.dagger_update(gts, gtrs, gdraws.dagger_perm)}
+    cm = {"dagger": ca.dagger_update(cts, ctrs, draws.dagger_perm)}
+    stages["dagger"] = _stage_errors(gm, cm, gts, cts, ("ac",))
+    print(f"TSC train parity, stages on identical inputs, card vs CPU (tol {TRAIN_TOL:g}): "
+          f"gae {gae:.3e}; lr {float(gts.lr):.3g} / {float(cts.lr):.3g}; "
+          + "; ".join(f"{k} metrics {m:.3e}, params "
+                      + ", ".join(f"{n} {v:.3e}" for n, v in p.items())
+                      for k, (m, p) in stages.items()), flush=True)
+    bad = gae > TRAIN_TOL or not np.isfinite(gae) or gts.lr != cts.lr
+    for m, p in stages.values():
+        bad |= not (m <= TRAIN_TOL and all(v <= TRAIN_TOL for v in p.values()))
+    if bad:
+        raise SystemExit("TSC train parity: a train stage on the card disagrees with the CPU's")
+
+
+def timed_training(label, cli, argv, num_envs):
+    """Build a runner through `cli`'s build (timed), time the env step alone,
+    train through `cli`'s train with a CUDA event at every stage mark and
+    the host clock, synchronised, at each iteration's start (before its
+    draws) and end (after the runner's log line, events and saves), then
+    time the env step again.  Prints each iteration's stages and the rate
+    over iterations 1-2; returns (runner, launches in training, mean
+    iteration ms over iterations 1-2)."""
+    args = cli.get_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = cli.build(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    marks, host = [], {"start": [], "end": []}
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+        if stage in host:
+            torch.cuda.synchronize()
+            host[stage].append(time.perf_counter())
+
+    step_before = env_step_ms(runner)
+    runner.alg.timer = mark
+    _counts_zero()
+    t0 = time.perf_counter()
+    cli.train(runner, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    runner.alg.timer = None
+    peak = torch.cuda.max_memory_allocated()
+    step_after = env_step_ms(runner)
+
+    # per iteration: each stage's time from the events (from the mark
+    # before it; "end" is the runner's work after the updates), and the
+    # iteration's time on the host clock
+    its, prev = [], None
+    for stage, ev in marks:
+        if stage == "start":
+            its.append({})
+        else:
+            its[-1][stage] = prev.elapsed_time(ev)
+        prev = ev
+    wall_ms = [(b - a) * 1e3 for a, b in zip(host["start"], host["end"])]
+    T = runner.cfg.num_steps_per_env
+    # all the work from iteration 1's start to iteration 2's end
+    rate = (2 * T * num_envs / (host["end"][2] - host["start"][1])
+            if len(wall_ms) >= 3 else float("nan"))
+    for i, (ms, it) in enumerate(zip(wall_ms, its)):
+        print(f"{label} iteration {i}: {ms:.1f} ms on the host clock, {sum(it.values()):.1f} "
+              "ms of events; stages (ms) " + ", ".join(f"{k} {v:.1f}" for k, v in it.items()),
+              flush=True)
+    print(f"{label}: {num_envs} envs x {T} steps x {len(wall_ms)} iterations in {wall:.1f} s "
+          f"(build {t_build:.1f} s); {rate:.1f} env-steps/s over iterations 1-2 (host "
+          f"clock, synchronised, start to end); launches {launches}; peak device memory "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated) on {torch.cuda.get_device_name(0)}",
+          flush=True)
+    print(f"{label}: the env step alone (zero actions, no trainer) {step_before:.1f} ms "
+          f"before training, {step_after:.1f} ms after; the rollout's step "
+          + ", ".join(f"{it['rollout'] / T:.1f}" for it in its) + " ms", flush=True)
+    return runner, launches, sum(wall_ms[1:3]) / 2 if len(wall_ms) >= 3 else wall_ms[-1]
+
+
+def _log_root():
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    return tempfile.mkdtemp(prefix="train_smoke-", dir=os.path.join(ROOT, "build"))
+
+
 def phase_train(num_envs, iters):
     """cli/train_bbc at full width for `iters` iterations; returns the
     kernels' launches."""
-    import shutil
-    import tempfile
     from agility_tpu_torch.cli import train_bbc
     from agility_tpu_torch.io import checkpoint as ckpt
     from agility_tpu_torch.learn.policy import build_policy
     from agility_tpu_torch.learn.ssinfogail import metrics_to_host
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    root = tempfile.mkdtemp(prefix="train_smoke-", dir=os.path.join(ROOT, "build"))
+    root = _log_root()
     try:
-        args = train_bbc.get_args(["--task", "go2_locomotion", "--num_envs", str(num_envs),
-                                   "--max_iterations", str(iters), "--device", "cuda",
-                                   "--log_root", root, "--log_every", "1"])
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        runner = train_bbc.build(args)
-        torch.cuda.synchronize()
-        t_build = time.perf_counter() - t0
-        marks, host = [], {"start": [], "end": []}
-
-        def mark(stage):
-            """A CUDA event at every stage; the host clock, synchronised, at
-            an iteration's start (before its draws) and end (after the
-            runner's log line, events and saves)."""
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((stage, ev))
-            if stage in host:
-                torch.cuda.synchronize()
-                host[stage].append(time.perf_counter())
-
-        step_before = env_step_ms(runner)
-        runner.alg.timer = mark
-        _counts_zero()
-        t0 = time.perf_counter()
-        train_bbc.train(runner, args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _counts()
-        runner.alg.timer = None
-        peak = torch.cuda.max_memory_allocated()
-        step_after = env_step_ms(runner)
-
-        # per iteration: each stage's time from the events (from the mark
-        # before it; "end" is the runner's work after the updates), and the
-        # iteration's time on the host clock
-        its, prev = [], None
-        for stage, ev in marks:
-            if stage == "start":
-                its.append({})
-            else:
-                its[-1][stage] = prev.elapsed_time(ev)
-            prev = ev
-        wall_ms = [(b - a) * 1e3 for a, b in zip(host["start"], host["end"])]
+        runner, launches, it_ms = timed_training(
+            "BBC train", train_bbc,
+            ["--task", "go2_locomotion", "--num_envs", str(num_envs), "--max_iterations",
+             str(iters), "--device", "cuda", "--log_root", root, "--log_every", "1"], num_envs)
         T = runner.cfg.num_steps_per_env
-        # all the work from iteration 1's start to iteration 2's end
-        rate = (2 * T * num_envs / (host["end"][2] - host["start"][1])
-                if len(wall_ms) >= 3 else float("nan"))
         m = metrics_to_host(runner.last_metrics)
         ts = runner.train_state
         finite = all(bool(torch.isfinite(p).all()) for k in ("ac", "est", "disc")
                      for p in getattr(ts, k).parameters()) and all(map(np.isfinite, m.values()))
-        for i, (ms, it) in enumerate(zip(wall_ms, its)):
-            print(f"BBC train iteration {i}: {ms:.1f} ms on the host clock, {sum(it.values()):.1f} "
-                  "ms of events; stages (ms) " + ", ".join(f"{k} {v:.1f}" for k, v in it.items()),
-                  flush=True)
-        print(f"BBC train: {num_envs} envs x {T} steps x {iters} iterations in {wall:.1f} s "
-              f"(build {t_build:.1f} s); {rate:.1f} env-steps/s over iterations 1-2 (host "
-              f"clock, synchronised, start to end); launches "
-              f"{launches}; ring size {ts.ring.size}; normaliser count "
-              f"{float(ts.disc_norm.count):.1f}; peak device memory {peak / 2**30:.3f} GiB "
-              f"(max_memory_allocated) on {torch.cuda.get_device_name(0)}", flush=True)
-        print(f"BBC train metrics: {json.dumps(m)}", flush=True)
-        print(f"BBC train: the env step alone (zero actions, no trainer) {step_before:.1f} ms "
-              f"before training, {step_after:.1f} ms after; the rollout's step "
-              + ", ".join(f"{it['rollout'] / T:.1f}" for it in its) + " ms", flush=True)
+        print(f"BBC train: ring size {ts.ring.size}; normaliser count "
+              f"{float(ts.disc_norm.count):.1f}; metrics {json.dumps(m)}", flush=True)
 
         path = ckpt.latest(runner.log_dir)
         policy = build_policy(runner.env.cfg, ckpt.params_from_jax(ckpt.read_msgpack(path)),
@@ -867,7 +980,58 @@ def phase_train(num_envs, iters):
             raise SystemExit("BBC train: the normaliser was never updated")
         if not same:
             raise SystemExit("BBC train: the slim checkpoint does not read back equal")
-        train_busy_share(runner, sum(wall_ms[1:3]) / 2 if len(wall_ms) >= 3 else wall_ms[-1])
+        train_busy_share("BBC train", runner, it_ms)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tsc_train(num_envs, iters):
+    """cli/train_tsc at full width (64 courses, the reference's teacher
+    flags, the frozen bbc_final) for `iters` iterations; returns the
+    kernels' launches."""
+    from agility_tpu_torch.cli import train_tsc
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.learn.ssinfogail import metrics_to_host
+
+    root = _log_root()
+    try:
+        runner, launches, it_ms = timed_training(
+            "TSC train", train_tsc,
+            ["--num_envs", str(num_envs), "--courses", "64", "--bbc_path", TSC_BBC,
+             "--randomize_start", "--randomize_base_mass", "--randomize_base_com",
+             "--push_robots", "--max_iterations", str(iters), "--device", "cuda",
+             "--log_root", root, "--log_every", "1"], num_envs)
+        T = runner.cfg.num_steps_per_env
+        m = metrics_to_host(runner.last_metrics)
+        ts = runner.train_state
+        finite = all(bool(torch.isfinite(p).all()) for k in ("ac", "est")
+                     for p in getattr(ts, k).parameters()) and all(map(np.isfinite, m.values()))
+        std_min = float(ts.ac.std.detach().min())
+        print(f"TSC train: priv_reg_counter {ts.priv_reg_counter}, lr {float(ts.lr):.3g}, "
+              f"std min {std_min:.4f}; success rate {float(runner.env_state.success_rate):.4f}; "
+              f"metrics {json.dumps(m)}", flush=True)
+
+        path = ckpt.latest(runner.log_dir)
+        back = ckpt.params_from_jax_tsc(ckpt.read_msgpack(path))
+        same = all(torch.equal(v.cpu(), back[name][k]) for name, mod in (
+            ("actor_critic", ts.ac), ("estimator", ts.est)) for k, v in mod.state_dict().items())
+        print(f"TSC train: slim checkpoint {os.path.basename(path)} read back by "
+              f"params_from_jax_tsc, tensors equal {same}", flush=True)
+        want = dict(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
+                    terrain_window=T * iters, scandots=T * iters)
+        if launches != want:
+            raise SystemExit(f"TSC train: launches {launches}, want {want}")
+        if not finite:
+            raise SystemExit("TSC train: a parameter or metric is not finite")
+        if ts.priv_reg_counter != iters + 1:
+            raise SystemExit(f"TSC train: priv_reg_counter {ts.priv_reg_counter}, want {iters + 1}"
+                             " (one PPO update an iteration, DAgger at iteration 0)")
+        if not std_min >= np.float32(runner.cfg.min_std):
+            raise SystemExit("TSC train: the continuous head's std fell below min_std")
+        if not same:
+            raise SystemExit("TSC train: the slim checkpoint does not read back equal")
+        train_busy_share("TSC train", runner, it_ms)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -890,7 +1054,7 @@ def env_step_ms(runner, steps=8):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def train_busy_share(runner, it_ms):
+def train_busy_share(label, runner, it_ms):
     """Device ops and busy time (the union of kernel, copy and fill
     intervals) of one more train iteration under torch.profiler, against
     the unprofiled iteration time.  A reading, not a gate."""
@@ -911,12 +1075,13 @@ def train_busy_share(runner, it_ms):
         ends = np.maximum.accumulate(spans[:, 1])
         gaps = np.maximum(spans[1:, 0] - ends[:-1], 0)
         busy = int(ends[-1] - spans[0, 0] - gaps.sum())
-    print(f"BBC train profile: one iteration (profiled {wall:.1f} ms): {len(spans)} device ops, "
+    print(f"{label} profile: one iteration (profiled {wall:.1f} ms): {len(spans)} device ops, "
           f"device busy {busy / 1e6:.2f} ms, {100 * busy / 1e6 / it_ms:.1f}% of the unprofiled "
           f"{it_ms:.1f} ms iteration", flush=True)
 
 
 def main():
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card")
     sys.path.insert(0, ROOT)
@@ -952,12 +1117,14 @@ def main():
                         ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
                         ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS)),
                         ("train parity", phase_train_parity),
-                        ("BBC train", lambda: phase_train(NUM_ENVS, TRAIN_ITERS))):
+                        ("BBC train", lambda: phase_train(NUM_ENVS, TRAIN_ITERS)),
+                        ("TSC train parity", phase_tsc_train_parity),
+                        ("TSC train", lambda: phase_tsc_train(TSC_ENVS, TRAIN_ITERS))):
         rows[name] = phase()
         print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
 
     paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"],
-                 bbc_train=rows["BBC train"])
+                 bbc_train=rows["BBC train"], tsc_train=rows["TSC train"])
     keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share")
     kernels = []
     # each kernel's headline numbers are those of its first shape: K1 at the
@@ -973,6 +1140,8 @@ def main():
             **{k: r[head][k] for k in keys}, library_ms=None,
             by_shape={shape: {k: v[k] for k in keys + ("sectors", "routes") if k in v}
                       for shape, v in r.items()}))
+    print(f"chip_smoke: every phase passed; total wall time {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

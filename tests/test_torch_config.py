@@ -20,6 +20,7 @@ import agility_tpu_torch
 from agility_tpu.cli import registry as jreg
 from agility_tpu.envs import config as jcfg
 from agility_tpu.envs import tsc_config as jtsc
+from agility_tpu.learn import ppo_tsc as jppo
 from agility_tpu.learn import ssinfogail as jgail
 from agility_tpu.terrain import generator as jgen
 from agility_tpu.terrain import obstacle as jobst
@@ -27,13 +28,14 @@ from agility_tpu_torch.cli import registry as treg
 from agility_tpu_torch.core import urdf as turdf
 from agility_tpu_torch.envs import config as tcfg
 from agility_tpu_torch.envs import tsc_config as ttsc
+from agility_tpu_torch.learn import ppo_tsc as tppo
 from agility_tpu_torch.learn import ssinfogail as tgail
 from agility_tpu_torch.terrain import generator as tgen
 from agility_tpu_torch.terrain import obstacle as tobst
 
 # the port's task names -> the JAX registry's ("go2" is the TSC task there)
 TASKS = {"go2_locomotion": "go2_locomotion", "go2_locomotion_smoke": "go2_locomotion_smoke",
-         "go2_agility": "go2"}
+         "go2_agility": "go2", "go2": "go2"}
 
 
 def _dataclasses(mod):
@@ -51,18 +53,18 @@ def test_registry_configs_equal(task):
 
 
 def test_algo_cfg_equal():
-    """The port's AlgoCfg has the JAX package's fields and defaults, and the
-    registry's algo half builds it for both BBC tasks; the TSC task has no
-    algo half in the port yet."""
-    names = [f.name for f in dataclasses.fields(jgail.AlgoCfg)]
-    assert [f.name for f in dataclasses.fields(tgail.AlgoCfg)] == names
-    assert dataclasses.asdict(tgail.AlgoCfg()) == dataclasses.asdict(jgail.AlgoCfg())
-    for task in ("go2_locomotion", "go2_locomotion_smoke"):
-        got, want = treg.get(task)[1](), jreg.get(task)[1]()
-        assert type(got) is tgail.AlgoCfg
+    """The port's AlgoCfg and TscAlgoCfg have the JAX package's fields and
+    defaults, and the registry's algo half builds them for every task: the
+    BBC's for both BBC tasks, the TSC teacher's for "go2" (the JAX name)
+    and "go2_agility"."""
+    for t, j in ((tgail.AlgoCfg, jgail.AlgoCfg), (tppo.TscAlgoCfg, jppo.TscAlgoCfg)):
+        assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+        assert dataclasses.asdict(t()) == dataclasses.asdict(j())
+    for task, kind in (("go2_locomotion", tgail.AlgoCfg), ("go2_locomotion_smoke", tgail.AlgoCfg),
+                       ("go2", tppo.TscAlgoCfg), ("go2_agility", tppo.TscAlgoCfg)):
+        got, want = treg.get(task)[1](), jreg.get(TASKS[task])[1]()
+        assert type(got) is kind
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    with pytest.raises(NotImplementedError):
-        treg.get("go2_agility")[1]()
 
 
 def test_metric_writer_is_byte_identical():

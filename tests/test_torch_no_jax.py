@@ -4,7 +4,9 @@ blocked imports every module of agility_tpu_torch, chip_smoke.py,
 kernel_bench.py and profile_slice.py, then takes two env steps of 2 envs on
 the CPU; a second one plays two hierarchical TSC steps of 2 envs on a
 2-course world; a third trains the BBC for two iterations of 8 envs through
-cli/train_bbc."""
+cli/train_bbc; a fourth trains the TSC teacher for two iterations of 4 envs
+on 2 courses through cli/train_tsc (full TscAlgoCfg), then resumes from
+the checkpoints it wrote for one more."""
 import os
 import subprocess
 import sys
@@ -75,6 +77,37 @@ TSC_SCRIPT = textwrap.dedent("""
 """)
 
 
+TSC_TRAIN_SCRIPT = textwrap.dedent("""
+    import os, sys, tempfile
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
+    import torch
+    from agility_tpu_torch.cli import train_tsc
+    from agility_tpu_torch.io import checkpoint as ckpt
+    torch.set_num_threads(1)   # small ops: one thread is faster and spares the suite's cores
+    flags = ["--debug", "--device", "cpu", "--num_envs", "4", "--courses", "2"]
+    with tempfile.TemporaryDirectory() as d:
+        r = train_tsc.run(train_tsc.get_args(flags + ["--max_iterations", "2", "--log_root", d]))
+        run_dir = os.path.join(d, "agility", "000")
+        assert sorted(n for n in os.listdir(run_dir) if not n.startswith("events")) == [
+            "model_2.msgpack", "state_2.pt"]
+        tree = ckpt.read_msgpack(os.path.join(run_dir, "model_2.msgpack"))
+        assert sorted(tree) == ["ac_params", "est_params", "iteration", "lr"]
+        assert int(tree["iteration"]) == 2 and r.train_state.priv_reg_counter == 3
+        std = r.train_state.ac.std.detach().clone()
+        r2 = train_tsc.run(train_tsc.get_args(flags + [
+            "--max_iterations", "1", "--log_root", d, "--resumeid", "000"]))
+        assert r2.current_iteration == 3 and r2.train_state.priv_reg_counter == 4
+        assert not torch.equal(r2.train_state.ac.std.detach(), std)
+        assert os.path.exists(os.path.join(run_dir, "model_3.msgpack"))
+        assert all(bool(torch.isfinite(p).all()) for p in r2.train_state.ac.parameters())
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
+                                                                  "agility_tpu."))
+                   for k, v in sys.modules.items() if v is not None)
+    print("ok")
+""")
+
+
 def _run(script):
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")]))}
@@ -94,3 +127,7 @@ def test_tsc_play_without_jax():
 
 def test_bbc_train_without_jax():
     _run(TRAIN_SCRIPT)
+
+
+def test_tsc_train_without_jax():
+    _run(TSC_TRAIN_SCRIPT)
