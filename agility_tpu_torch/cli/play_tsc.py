@@ -1,17 +1,21 @@
-"""TSC teacher evaluation entry point (counterpart of the teacher path of
-agility_tpu/cli/play_tsc.py).
+"""TSC evaluation entry point (counterpart of agility_tpu/cli/play_tsc.py).
 
-Runs the hierarchical stack — TSC estimator and heads -> set_commands ->
-frozen BBC -> env — on the obstacle courses and prints the course success
-rate, the mean goal index reached and env-steps/s:
+Runs the hierarchical stack — TSC estimator and heads (or, with
+--use_camera, the depth student: ray-cast depth -> encoder, held between
+camera refreshes -> student heads) -> set_commands -> frozen BBC -> env —
+on the obstacle courses and prints the course success rate, the mean goal
+index reached and env-steps/s:
 
     python -m agility_tpu_torch.cli.play_tsc --device cuda --num_envs 6144 \\
         --courses 64 --steps 200 --checkpoint logs/agility/r5/model_12000.msgpack \\
-        --bbc_path logs/bbc_r5/bbc_final.msgpack
+        --bbc_path logs/bbc_r5/bbc_final.msgpack [--use_camera --vision_checkpoint
+        logs/agility/vis/vision_30000.msgpack]
 
 The checkpoints are given as files (the JAX command resolves them from
---log_root/--proj_name/--exptid).  Float32 matrix products and convolutions
-run in full float32 (TF32 off).
+--log_root/--proj_name/--exptid).  The student's camera noise comes from a
+generator seeded with seed + 2; without --vision_checkpoint it runs an
+untrained student.  Float32 matrix products and convolutions run in full
+float32 (TF32 off).
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ import torch
 from agility_tpu_torch.cli import registry
 from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
 from agility_tpu_torch.io import checkpoint as ckpt
-from agility_tpu_torch.learn.policy_tsc import build_tsc_policy
+from agility_tpu_torch.learn.policy_tsc import TscPolicy, build_tsc_policy
+from agility_tpu_torch.learn.vision_tsc import StudentPolicy, TscVision, VisionCfg
 
 WARMUP = 10  # leading control steps left out of the env-steps/s figure
 
@@ -39,7 +44,10 @@ def get_args(argv=None):
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--use_camera", action="store_true",
-                   help="evaluate the depth student (not ported yet)")
+                   help="evaluate the depth student: render depth every update_interval "
+                        "steps, hold the encoder's outputs between refreshes")
+    p.add_argument("--vision_checkpoint", default=None,
+                   help="depth student checkpoint (vision_<step>.msgpack)")
     return p.parse_args(argv)
 
 
@@ -52,8 +60,6 @@ def build(args):
     """The play env (command noise, action delay and friction randomization
     off, as in the JAX command) and the hierarchical policy: returns (env,
     policy, device)."""
-    if args.use_camera:
-        raise NotImplementedError("play_tsc --use_camera: the depth student is not ported yet")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
@@ -76,7 +82,26 @@ def build(args):
         bbc = ckpt.load_bbc_frozen(args.bbc_path)
     else:
         print("WARNING: no BBC checkpoint — the low level is untrained")
-    return env, build_tsc_policy(cfg, tsc, bbc, device, seed=args.seed), device
+    policy = build_tsc_policy(cfg, tsc, bbc, device, seed=args.seed)
+    if args.use_camera:
+        policy = student(env, policy, args)
+    return env, policy, device
+
+
+def student(env, teacher: TscPolicy, args) -> StudentPolicy:
+    """The depth student on the teacher's estimator and the frozen BBC, its
+    encoder and heads from --vision_checkpoint."""
+    vision = TscVision(env, teacher.ac, teacher.est, teacher.bbc, VisionCfg(), seed=args.seed)
+    vts = vision.init_train_state()
+    if args.vision_checkpoint:
+        print(f"loading student {args.vision_checkpoint}")
+        sd = ckpt.params_from_jax_vision(ckpt.read_msgpack(args.vision_checkpoint))
+        vts.enc.load_state_dict(sd["encoder"])
+        vts.actor.load_state_dict(sd["actor_critic"])
+    else:
+        print("WARNING: no vision checkpoint — evaluating an untrained student")
+    gen = torch.Generator(device=env.device).manual_seed(args.seed + 2)
+    return StudentPolicy(vision, vts.enc.eval(), vts.actor.eval(), gen)
 
 
 def run(args) -> dict:

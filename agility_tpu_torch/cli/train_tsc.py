@@ -1,15 +1,23 @@
-"""TSC teacher training entry point (counterpart of the teacher phase of
-agility_tpu/cli/train_tsc.py):
+"""TSC training entry point (counterpart of agility_tpu/cli/train_tsc.py).
 
+Teacher phase:
     python -m agility_tpu_torch.cli.train_tsc --bbc_path logs/bbc_r5/bbc_final.msgpack \\
         --randomize_start --randomize_base_mass --randomize_base_com --push_robots \\
         [--num_envs 6144] [--max_iterations 30000] [--resumeid 000] [--device cuda]
+Student phase (depth distillation, learn/vision_tsc.py):
+    python -m agility_tpu_torch.cli.train_tsc --use_camera \\
+        --bbc_path logs/bbc_r5/bbc_final.msgpack --log_root logs --proj_name agility \\
+        --resumeid r5 --exptid vis [--num_envs 256]
 
 Checkpoints land in <log_root>/<proj_name>/<exptid>/ (see
-learn/runner_tsc.py); --resumeid continues from the newest one of that
-experiment.  `--debug` trains 64 envs on 8 courses.  The depth student
-(--use_camera) is not ported yet, nor the JAX package's --multihost and
---shard (a device mesh).  TF32 is off for matrix products and
+learn/runner_tsc.py); in the teacher phase --resumeid continues from the
+newest one of that experiment.  The student phase reads its teacher from
+the newest model_*.msgpack of <resumeid or exptid> (a JAX-written one
+included), runs `depth.camera_num_envs` (256) envs unless --num_envs or
+--debug says otherwise, starts the env state from seed + 1, and writes
+vision_<step>.msgpack every 100 iterations and at the end.  `--debug`
+trains 64 envs on 8 courses.  The JAX package's --multihost and --shard (a
+device mesh) are not ported.  TF32 is off for matrix products and
 convolutions.
 """
 from __future__ import annotations
@@ -24,12 +32,13 @@ from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
 from agility_tpu_torch.envs.tsc_config import tsc_smoke_cfg
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.learn.runner_tsc import TscOnPolicyRunner
+from agility_tpu_torch.learn.vision_tsc import TscVision, VisionCfg, VisionRunner
 
 DR_FLAGS = ("randomize_base_mass", "randomize_base_com", "push_robots")
 
 
 def get_args(argv=None):
-    p = argparse.ArgumentParser(description="Train the TSC agility policy (teacher)")
+    p = argparse.ArgumentParser(description="Train the TSC agility policy")
     p.add_argument("--proj_name", default="agility")
     p.add_argument("--exptid", default="000")
     p.add_argument("--resumeid", default=None)
@@ -41,7 +50,7 @@ def get_args(argv=None):
     p.add_argument("--bbc_path", default=None,
                    help="BBC checkpoint for the frozen low-level policy")
     p.add_argument("--use_camera", action="store_true",
-                   help="student phase: depth-camera distillation (not ported yet)")
+                   help="student phase: depth-camera distillation")
     p.add_argument("--obstacle_curriculum", action="store_true")
     # the reference's teacher-training flags
     p.add_argument("--randomize_start", action="store_true",
@@ -56,10 +65,9 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def build(args) -> TscOnPolicyRunner:
-    """The env and the runner (resumed where asked), ready to learn."""
-    if args.use_camera:
-        raise NotImplementedError("train_tsc --use_camera: the depth student is not ported yet")
+def build(args):
+    """The env and the runner, ready to learn: the teacher's (resumed where
+    asked) or, with --use_camera, the student's on the loaded teacher."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
@@ -70,7 +78,10 @@ def build(args) -> TscOnPolicyRunner:
         cfg = tsc_smoke_cfg(num_envs=64, courses=8)
     else:
         cfg = registry.apply_overrides(make_env_cfg(), seed=args.seed)
-    overrides = {"env.num_envs": args.num_envs, "obstacle.courses": args.courses}
+    num_envs = args.num_envs
+    if num_envs is None and args.use_camera and not args.debug:
+        num_envs = cfg.depth.camera_num_envs    # the reference's camera env count
+    overrides = {"env.num_envs": num_envs, "obstacle.courses": args.courses}
     if args.obstacle_curriculum:
         overrides["obstacle.curriculum"] = True
     if args.randomize_start:
@@ -83,7 +94,10 @@ def build(args) -> TscOnPolicyRunner:
     log_dir = os.path.join(args.log_root, args.proj_name, args.exptid)
     env = Go2AgilityEnv(cfg, device, seed=args.seed)
     runner = TscOnPolicyRunner(env, ckpt.load_bbc_frozen(args.bbc_path, seed=args.seed),
-                               make_algo_cfg(), log_dir=log_dir, seed=args.seed)
+                               make_algo_cfg(), log_dir=None if args.use_camera else log_dir,
+                               seed=args.seed)
+    if args.use_camera:
+        return _student(args, runner, log_dir)
     if args.resumeid:
         path = ckpt.latest(os.path.join(args.log_root, args.proj_name, args.resumeid))
         if path:
@@ -96,13 +110,27 @@ def build(args) -> TscOnPolicyRunner:
     return runner
 
 
-def train(runner: TscOnPolicyRunner, args) -> TscOnPolicyRunner:
+def _student(args, teacher: TscOnPolicyRunner, log_dir: str) -> VisionRunner:
+    """The depth student's runner on the teacher of <resumeid or exptid>."""
+    path = ckpt.latest(os.path.join(args.log_root, args.proj_name, args.resumeid or args.exptid))
+    if path:
+        print(f"loading teacher from {path}")
+        teacher.load(path)
+    else:
+        print("WARNING: no teacher checkpoint — distilling an untrained teacher")
+    env, ts = teacher.env, teacher.train_state
+    vision = TscVision(env, ts.ac, ts.est, teacher.alg.bbc_ac, VisionCfg(), seed=args.seed)
+    env.gen.manual_seed(args.seed + 1)
+    return VisionRunner(vision, env.init_state(), log_dir)
+
+
+def train(runner, args):
     runner.learn(args.max_iterations, log_every=args.log_every)
     runner.save(runner.current_iteration)
     return runner
 
 
-def run(args) -> TscOnPolicyRunner:
+def run(args):
     return train(build(args), args)
 
 

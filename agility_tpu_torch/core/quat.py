@@ -47,6 +47,12 @@ def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_rotate(quat_conjugate(q), v)
 
 
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Unit axis (..., 3), angle (...) -> quat (..., 4)."""
+    half = 0.5 * angle
+    return torch.cat([axis * torch.sin(half)[..., None], torch.cos(half)[..., None]], dim=-1)
+
+
 def quat_from_euler_xyz(roll, pitch, yaw) -> torch.Tensor:
     """Intrinsic x-y-z Euler angles -> quat."""
     cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)

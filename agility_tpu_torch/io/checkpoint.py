@@ -24,6 +24,10 @@ A BBC training run writes two artifacts (learn/runner.py):
     the disc window.  The JAX package does not read it.
 A TSC teacher run (learn/runner_tsc.py) writes the same two kinds: the
 slim tree is the JAX TSC runner's (ac_params, est_params, lr, iteration).
+A depth-student run (learn/vision_tsc.py) writes vision_<step>.msgpack,
+{enc_params, actor_params} in the JAX train_tsc --use_camera layout;
+`params_from_jax_vision` and `params_to_jax_vision` carry the encoder, the
+student actor-critic and the BYOL nets across.
 """
 from __future__ import annotations
 
@@ -282,11 +286,8 @@ def params_to_jax(ac_sd, est_sd, disc_sd) -> Dict[str, Any]:
             "disc_params": {"params": disc}}
 
 
-def params_from_jax_tsc(tree) -> Dict[str, Dict[str, torch.Tensor]]:
-    """State dicts {"actor_critic": ..., "estimator": ...} for
-    networks_tsc.ActorCriticTSC / networks.Estimator from a TSC teacher's
-    flax checkpoint tree (`ac_params`, `est_params`)."""
-    ac = tree["ac_params"]["params"]
+def _tsc_ac(ac) -> Dict[str, torch.Tensor]:
+    """networks_tsc.ActorCriticTSC's state dict from its flax params."""
     sd = {"std": torch.as_tensor(np.asarray(ac["std"]))}
     sd.update(_mlp(ac["priv_encoder"], "priv_encoder"))
     sd.update(_history_encoder(ac["history_encoder"], "history_encoder"))
@@ -296,13 +297,19 @@ def params_from_jax_tsc(tree) -> Dict[str, Dict[str, torch.Tensor]]:
     sd.update(_dense(ac["actor_c"], "actor_c"))
     sd.update(_mlp(ac["critic_trunk"], "critic_trunk"))
     sd.update(_dense(ac["critic_head"], "critic_head"))
+    return sd
+
+
+def params_from_jax_tsc(tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """State dicts {"actor_critic": ..., "estimator": ...} for
+    networks_tsc.ActorCriticTSC / networks.Estimator from a TSC teacher's
+    flax checkpoint tree (`ac_params`, `est_params`)."""
     est = _mlp(tree["est_params"]["params"]["MLP_0"], "mlp")
-    return {"actor_critic": sd, "estimator": est}
+    return {"actor_critic": _tsc_ac(tree["ac_params"]["params"]), "estimator": est}
 
 
-def params_to_jax_tsc(ac_sd, est_sd) -> Dict[str, Any]:
-    """The flax parameter trees {"ac_params", "est_params"} of a TSC
-    teacher's state dicts (the inverse of params_from_jax_tsc)."""
+def _to_tsc_ac(ac_sd) -> Dict[str, Any]:
+    """ActorCriticTSC's flax params from its state dict."""
     ac = {"std": ac_sd["std"].detach().cpu().numpy()}
     for m in ("priv_encoder", "scan_encoder", "actor_trunk", "critic_trunk"):
         ac[m] = _to_mlp(ac_sd, m)
@@ -312,8 +319,133 @@ def params_to_jax_tsc(ac_sd, est_sd) -> Dict[str, Any]:
                              "Dense_1": _to_dense(ac_sd, "history_encoder.out")}
     for h in ("actor_d", "actor_c", "critic_head"):
         ac[h] = _to_dense(ac_sd, h)
-    return {"ac_params": {"params": ac},
+    return ac
+
+
+def params_to_jax_tsc(ac_sd, est_sd) -> Dict[str, Any]:
+    """The flax parameter trees {"ac_params", "est_params"} of a TSC
+    teacher's state dicts (the inverse of params_from_jax_tsc)."""
+    return {"ac_params": {"params": _to_tsc_ac(ac_sd)},
             "est_params": {"params": {"MLP_0": _to_mlp(est_sd, "mlp")}}}
+
+
+# ---------------------------------------------------------------------------
+# the depth student (learn/depth.py): flax Conv kernels are HWIO over NHWC
+# input, nn.Conv2d weights OIHW; the GRU's (r, z, n) kernels are stacked
+# ---------------------------------------------------------------------------
+
+_GATES = ("r", "z", "n")
+
+
+def _conv2d(p, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": torch.as_tensor(
+                np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)).copy()),
+            f"{prefix}.bias": torch.as_tensor(np.asarray(p["bias"]))}
+
+
+def _backbone(p, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {}
+    for i in range(2):
+        out.update(_conv2d(p[f"Conv_{i}"], f"{prefix}.conv{i}"))
+        out.update(_dense(p[f"Dense_{i}"], f"{prefix}.fc{i}"))
+    return out
+
+
+def _encoder(p) -> Dict[str, torch.Tensor]:
+    """RecurrentDepthEncoder's state dict from its flax params."""
+    sd = _backbone(p["backbone"], "backbone")
+    sd.update(_dense(p["combine"]["layers_0"], "combine.layers.0"))
+    sd.update(_dense(p["combine"]["layers_2"], "combine.layers.1"))
+    g = p["gru"]
+    stack = lambda side, k, t=lambda a: a: torch.as_tensor(np.concatenate(
+        [t(np.asarray(g[side + gate][k])) for gate in _GATES]))
+    sd.update({"gru.w_i": stack("i", "kernel", np.transpose), "gru.b_i": stack("i", "bias"),
+               "gru.w_h": stack("h", "kernel", np.transpose),
+               "gru.b_hn": torch.as_tensor(np.asarray(g["hn"]["bias"]))})
+    sd.update(_dense(p["out"], "out"))
+    return sd
+
+
+def _byol(v) -> Dict[str, torch.Tensor]:
+    """BYOLNets' state dict from its flax variables {"params", "batch_stats"}."""
+    p, stats = v["params"], v["batch_stats"]
+    sd = _backbone(p["backbone"], "backbone")
+    for head in ("projector", "predictor"):
+        sd.update(_dense(p[head]["Dense_0"], f"{head}.fc0"))
+        sd.update(_dense(p[head]["Dense_1"], f"{head}.fc1"))
+        for k, src in (("scale", p), ("bias", p), ("mean", stats), ("var", stats)):
+            sd[f"{head}.bn.{k}"] = torch.as_tensor(np.asarray(src[head]["BatchNorm_0"][k]))
+    return sd
+
+
+def params_from_jax_vision(tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """State dicts for the depth student from flax trees: "encoder"
+    (learn/depth.RecurrentDepthEncoder) from `enc_params` and
+    "actor_critic" (the student's ActorCriticTSC) from `actor_params`, the
+    two a vision_<step>.msgpack checkpoint holds; and, where the tree has
+    them, "byol_online" / "byol_target" (learn/depth.BYOLNets) from the
+    BYOL variables `byol_online` / `byol_target`."""
+    out = {"encoder": _encoder(tree["enc_params"]["params"]),
+           "actor_critic": _tsc_ac(tree["actor_params"]["params"])}
+    for k in ("byol_online", "byol_target"):
+        if k in tree:
+            out[k] = _byol(tree[k])
+    return out
+
+
+def _to_conv2d(sd, prefix: str) -> Dict[str, np.ndarray]:
+    w = sd[f"{prefix}.weight"].detach().cpu().numpy()
+    return {"kernel": np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0))),
+            "bias": sd[f"{prefix}.bias"].detach().cpu().numpy()}
+
+
+def _to_backbone(sd, prefix: str) -> Dict[str, Dict[str, np.ndarray]]:
+    out = {}
+    for i in range(2):
+        out[f"Conv_{i}"] = _to_conv2d(sd, f"{prefix}.conv{i}")
+        out[f"Dense_{i}"] = _to_dense(sd, f"{prefix}.fc{i}")
+    return out
+
+
+def _to_encoder(sd) -> Dict[str, Any]:
+    np_ = lambda k: sd[k].detach().cpu().numpy()
+    w_i, b_i, w_h = np_("gru.w_i"), np_("gru.b_i"), np_("gru.w_h")
+    H = w_h.shape[1]
+    gru = {}
+    for j, g in enumerate(_GATES):
+        rows = slice(j * H, (j + 1) * H)
+        gru[f"i{g}"] = {"kernel": np.ascontiguousarray(w_i[rows].T), "bias": b_i[rows]}
+        gru[f"h{g}"] = {"kernel": np.ascontiguousarray(w_h[rows].T)}
+    gru["hn"]["bias"] = np_("gru.b_hn")
+    return {"backbone": _to_backbone(sd, "backbone"),
+            "combine": {"layers_0": _to_dense(sd, "combine.layers.0"),
+                        "layers_2": _to_dense(sd, "combine.layers.1")},
+            "gru": gru, "out": _to_dense(sd, "out")}
+
+
+def _to_byol(sd) -> Dict[str, Any]:
+    params, stats = {"backbone": _to_backbone(sd, "backbone")}, {}
+    for head in ("projector", "predictor"):
+        bn = lambda k: sd[f"{head}.bn.{k}"].detach().cpu().numpy()
+        params[head] = {"Dense_0": _to_dense(sd, f"{head}.fc0"),
+                        "BatchNorm_0": {"scale": bn("scale"), "bias": bn("bias")},
+                        "Dense_1": _to_dense(sd, f"{head}.fc1")}
+        stats[head] = {"BatchNorm_0": {"mean": bn("mean"), "var": bn("var")}}
+    return {"params": params, "batch_stats": stats}
+
+
+def params_to_jax_vision(enc_sd, actor_sd, byol_online_sd=None, byol_target_sd=None
+                         ) -> Dict[str, Any]:
+    """The flax trees {"enc_params", "actor_params"} of the depth student's
+    state dicts (a vision_<step>.msgpack checkpoint's content), plus
+    "byol_online" / "byol_target" where given (the inverse of
+    params_from_jax_vision)."""
+    tree = {"enc_params": {"params": _to_encoder(enc_sd)},
+            "actor_params": {"params": _to_tsc_ac(actor_sd)}}
+    for k, sd in (("byol_online", byol_online_sd), ("byol_target", byol_target_sd)):
+        if sd is not None:
+            tree[k] = _to_byol(sd)
+    return tree
 
 
 def load_bbc_frozen(path: Optional[str], seed: int = 0) -> BBCFrozen:

@@ -168,11 +168,11 @@ _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
 def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """Flax's default initial values, in place, drawn from `gen` (on the
     parameters' device): lecun-normal kernels (fan_in = in for a Dense,
-    kernel size x in for a Conv), truncated at 2 sigma, and zero biases;
+    kernel size x in for a Conv, 1-D or 2-D), truncated at 2 sigma, and zero biases;
     a Discriminator's logit kernel U(-1, 1); ActorCritic.std keeps its
     init_noise_std."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)

@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels from the
 repository's sources, checks each against its plain-torch version at the main
-paths' shapes, then drives the port's two serving paths at full width — the
-BBC policy rollout (agility_tpu_torch.cli.play_bbc) and the TSC obstacle-
-course evaluation (agility_tpu_torch.cli.play_tsc) — and its two training
-paths (cli/train_bbc, cli/train_tsc), and checks what comes out.
+paths' shapes, then drives the port's serving paths at full width — the
+BBC policy rollout (agility_tpu_torch.cli.play_bbc), the TSC obstacle-
+course evaluation (agility_tpu_torch.cli.play_tsc) and the depth student's
+(play_tsc --use_camera) — and its training paths (cli/train_bbc,
+cli/train_tsc and train_tsc --use_camera), and checks what comes out.
 
     python3 chip_smoke.py            # needs one CUDA card; exits nonzero without one
 
@@ -12,9 +13,11 @@ Phases (any failure exits nonzero and prints no result line):
                sm_90a, one process per source, all at once (timed).
   2. K1      — the contact LCP kernel against contact_lcp_reference on one card,
                inputs built by the port's own SoA code from a real batch of
-               states, at both paths' shapes: the BBC's (N = 4096, S = 24) and
-               the TSC's (N = 6144 on 64 courses, S = 28, 64 envs pressed into
-               the tunnel roof so that ceiling rows are active).  5 sweeps
+               states, at every path's shape: the BBC's (N = 4096, S = 24), the
+               TSC's (N = 6144 on 64 courses, S = 28, 64 envs pressed into the
+               tunnel roof so that ceiling rows are active) and the depth
+               student's (N = 256 on 64 courses, S = 28, 64 envs in the roof:
+               one env a persistent block, so the ring streams no second env).  5 sweeps
                warm-started from a nonzero lam0, and 10 sweeps cold.  Tolerance:
                max |kernel - plain| <= 1e-4 x max |plain| (float32, sums in
                another order); two calls on the same inputs give the same bits.
@@ -31,8 +34,8 @@ Phases (any failure exits nonzero and prints no result line):
                64-course world (1320 x 1800, five surfaces), N = 6144 windows of
                32 cells centred on goal waypoints, weights over the bar, tire and
                tilt ranges, with the counts of layer, lever and ceiling cells
-               under the windows > 0; and the BBC's rough grid (one surface, no
-               weights), N = 4096 windows at the spawn points and, for every
+               under the windows > 0, and the same at the depth student's N = 256;
+               and the BBC's rough grid (one surface, no weights), N = 4096 windows at the spawn points and, for every
                other env, anywhere on or off the map, so that origins clamp at
                the edges.  Two calls give the same bits.  The bytes count each
                distinct grid cell under the windows once; beside them, the
@@ -40,8 +43,8 @@ Phases (any failure exits nonzero and prints no result line):
                launch parameters and each surface's route (staged by TMA or
                cp.async, or plain loads) are printed.
   4. K3      — the scandots against patch.measure_scandots_batch on that world,
-               N = 6144 scans of 132 points, window 34: exactly equal, two calls
-               the same bits.  The bytes count each distinct grid node the scans
+               N = 6144 scans of 132 points and the depth student's N = 256,
+               window 34: exactly equal, two calls the same bits.  The bytes count each distinct grid node the scans
                read once; sectors, launch parameters and routes (a gather)
                as for K2.
   5. parity  — one BBC control step of a 64-env batch on the card against the
@@ -102,6 +105,33 @@ Phases (any failure exits nonzero and prints no result line):
                priv_reg_counter 4, std >= min_std, the slim checkpoint read
                back by params_from_jax_tsc to equal tensors; then one more
                iteration under torch.profiler.
+ 13. vision parity — one depth-student iteration of 64 envs on 8 courses
+               (T = 8: camera chunks of 5 and 3, the teacher model_12000 and
+               the frozen bbc_final, command noise off) on the card against
+               the CPU, from one state, the same student weights and draws:
+               the refresh images by the crossing rule (raycast.crossing_mask), the
+               rollout's states, stored obs and teacher targets; then on
+               identical inputs the encoder's outputs, the four losses and
+               every parameter after the update (phase_vision_parity states
+               the tolerances).
+ 14. vision train — cli/train_tsc --use_camera at camera_num_envs = 256
+               envs on 64 courses, the full VisionCfg (T = 24, six BYOL
+               minibatches) and the 87 x 58 camera with 32 march samples,
+               the teacher logs/agility/r5/model_12000.msgpack resolved
+               through a temporary --log_root that links it, for 3
+               iterations: timed as BBC train, with each stage (the
+               estimator before a refresh, the ray-march, depth processing,
+               encoder, heads and commands, env step, update, BYOL) and the ray-march's ms a refresh and share
+               of an iteration; K1 launches = 4 x 24 x 3, K2 = K3 = 24 x 3,
+               every parameter and metric finite, vision_3.msgpack read back
+               by params_from_jax_vision to equal tensors; then one more
+               iteration under torch.profiler.
+ 15. vision play — cli/play_tsc --use_camera at 256 envs on 64 courses
+               with that checkpoint, the teacher's estimator and the frozen
+               BBC for 50 control steps: K1 launches = 4 x (steps + 1), K2 =
+               K3 = steps + 1, every state finite, median base height over
+               the folded floor in [0.15, 0.45] m, env-steps/s; then two
+               steps under torch.profiler.
 The line before the kernels' JSON record gives the script's total wall
 time; the line before the last is the kernels' JSON record; the last line
 is the device record.
@@ -130,7 +160,15 @@ NUM_ENVS = 4096     # the BBC path's width
 STEPS = 250         # control steps of the BBC slice phase
 TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
 TSC_STEPS = 100     # control steps of the TSC slice phase (cut from 200 for the script's time)
-TRAIN_ITERS = 3     # iterations of the BBC and TSC train phases
+TRAIN_ITERS = 3     # iterations of the BBC, TSC and vision train phases
+VISION_ENVS = 256   # the depth student's width (DepthCfg.camera_num_envs), on 64 courses
+VISION_STEPS = 50   # control steps of the vision play phase
+# the refresh images, card vs CPU (tests/test_torch_vision.py's rule): the
+# pixels raycast.crossing_mask leaves out are counted; the rest are held at
+# DEPTH_TOL m (a grazing ray's secant step magnifies a clearance's float32
+# difference) and DEPTH_P99 m at the 99th percentile
+DEPTH_TOL = 1e-3
+DEPTH_P99 = 1e-5
 TRAIN_TOL = 1e-4    # card vs CPU, relative, per train stage
 # the disc update's parameters: a trunk unit whose pre-activation lies within
 # rounding of zero on some row sends the two sides' gradients apart there
@@ -356,13 +394,14 @@ def course_case(n, seed=0):
     return grid, f32(c), f32(w), f32(scan_c), f32(pts[..., 0]), f32(pts[..., 1])
 
 
-def k2_cases(bbc, n=TSC_ENVS):
-    """K2's inputs at both paths' shapes, (label, grid, centres, size,
+def k2_cases(bbc):
+    """K2's inputs at every path's shape, (label, grid, centres, size,
     weights): the TSC's (course world, weights, ceiling, N = 6144 windows of
-    32 on goal waypoints) and the BBC's (`bbc`: its env and initial states;
-    one surface, no weights, every other centre anywhere on the map or up
-    to 1 m off it)."""
-    grid, c, w, _, _, _ = course_case(n)
+    32 on goal waypoints), the depth student's (the same at N = 256) and the
+    BBC's (`bbc`: its env and initial states; one surface, no weights,
+    every other centre anywhere on the map or up to 1 m off it)."""
+    grid, c, w, _, _, _ = course_case(TSC_ENVS)
+    vgrid, vc, vw, _, _, _ = course_case(VISION_ENVS)
     env, s, params = bbc
     bgrid, size = env.grid, env.engine_cfg.patch_size
     H, W = bgrid.height.shape
@@ -371,7 +410,8 @@ def k2_cases(bbc, n=TSC_ENVS):
     span = torch.tensor([H, W], device=bc.device) * bgrid.hscale + 2.0
     g = torch.Generator(device=bc.device).manual_seed(0)
     bc[1::2] = lo + span * torch.rand(bc[1::2].shape, generator=g, device=bc.device)
-    return [("tsc", grid, c, 32, w), ("bbc", bgrid, bc.contiguous(), size, params.hf_weights)]
+    return [("tsc", grid, c, 32, w), ("tsc_vision", vgrid, vc, 32, vw),
+            ("bbc", bgrid, bc.contiguous(), size, params.hf_weights)]
 
 
 def k2_reads(grid, ref, w):
@@ -426,8 +466,9 @@ def _k2_check(label, grid, c, size, w):
 
 
 def phase_k2(bbc):
-    """K2 at the TSC path's shape (course world, weights, ceiling) and at the
-    BBC path's (one surface, no weights, windows clamped at the map's edge)."""
+    """K2 at the TSC paths' shapes (course world, weights, ceiling; the
+    teacher's N and the depth student's) and at the BBC path's (one surface,
+    no weights, windows clamped at the map's edge)."""
     from agility_tpu_torch.physics import heightfield as hf
 
     rows = {}
@@ -435,13 +476,14 @@ def phase_k2(bbc):
         ref, rows[label] = _k2_check(label, grid, c, size, w)
         ar = torch.arange(size, device="cuda")
         ix, iy = (ref.x0[:, None] + ar)[:, :, None], (ref.y0[:, None] + ar)[:, None, :]
-        if label == "tsc":
+        if label.startswith("tsc"):
             counts = dict(layer=int((grid.layer_id[ix, iy] != 0).sum()),
                           lever=int((grid.lever[ix, iy] != 0).sum()),
                           ceiling=int((grid.ceiling[ix, iy] < hf.NO_CEILING).sum()))
-            print(f"K2 tsc: cells under the windows {counts}", flush=True)
+            print(f"K2 {label}: cells under the windows {counts}", flush=True)
             if min(counts.values()) == 0:
-                raise SystemExit("K2 tsc: the windows cover no layer, lever or ceiling cell")
+                raise SystemExit(f"K2 {label}: the windows cover no layer, lever or ceiling "
+                                 "cell")
         else:
             H, W = grid.height.shape
             clamped = int(((ref.x0 == 0) | (ref.x0 == H - size) | (ref.y0 == 0)
@@ -452,9 +494,9 @@ def phase_k2(bbc):
     return rows
 
 
-def k3_case(n=TSC_ENVS):
-    """K3's inputs at the TSC path's shape: (grid, scan centres, window 34,
-    weights, px, py) on the course world."""
+def k3_case(n):
+    """K3's inputs at a TSC path's shape, N = `n` scans: (grid, scan
+    centres, window 34, weights, px, py) on the course world."""
     grid, _, w, sc, px, py = course_case(n)
     return grid, sc, 34, w, px, py
 
@@ -482,34 +524,40 @@ def k3_moved(args, out, cells, names):
 
 
 def phase_k3():
+    """K3 against its plain version at the TSC paths' shapes: the teacher's
+    N = 6144 scans and the depth student's N = 256."""
     from agility_tpu_torch.kernels import scandots as k3
 
-    args = k3_case()
-    grid, sc, size, w, px, py = args
-    got = k3.scandots(*args)
-    again = k3.scandots(*args)
-    ref = k3.scandots_reference(*args)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    same, twice = torch.equal(got, ref), torch.equal(got, again)
-    cells, sectors, names, (r, col) = k3_reads(grid, args)
-    counts = dict(layer=int((grid.layer_id[r, col] != 0).sum()),
-                  lever=int((grid.lever[r, col] != 0).sum()))
-    t = timed(lambda: k3.scandots(*args), lambda: k3.scandots_reference(*args),
-              k3_moved(args, got, cells, names))
-    cfg = dict(k3.launch_config(sc.shape[0], px.shape[1], size),
-               routes={s: k3.ROUTE for s in names})
-    print(f"K3: N={sc.shape[0]} scans x {px.shape[1]} points, window {size}, floor nodes on "
-          f"{counts}; launch {cfg}; {cells} distinct nodes read, 32-byte sectors touched per "
-          f"surface {sectors}; max abs err {err:.3e}, exactly equal {same}, two calls "
-          f"bit-identical {twice}; {fmt_times(t)}", flush=True)
-    if not same:
-        raise SystemExit("K3: kernel differs from the plain version")
-    if not twice:
-        raise SystemExit("K3: two calls on the same inputs differ")
-    if min(counts.values()) == 0:
-        raise SystemExit("K3: the scans cross no layer or lever cell")
-    return {"tsc": dict(max_abs_err=err, cells=cells, sectors=sectors, routes=cfg["routes"], **t)}
+    rows = {}
+    for label, n in (("tsc", TSC_ENVS), ("tsc_vision", VISION_ENVS)):
+        args = k3_case(n)
+        grid, sc, size, w, px, py = args
+        got = k3.scandots(*args)
+        again = k3.scandots(*args)
+        ref = k3.scandots_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        same, twice = torch.equal(got, ref), torch.equal(got, again)
+        cells, sectors, names, (r, col) = k3_reads(grid, args)
+        counts = dict(layer=int((grid.layer_id[r, col] != 0).sum()),
+                      lever=int((grid.lever[r, col] != 0).sum()))
+        t = timed(lambda: k3.scandots(*args), lambda: k3.scandots_reference(*args),
+                  k3_moved(args, got, cells, names))
+        cfg = dict(k3.launch_config(sc.shape[0], px.shape[1], size),
+                   routes={s: k3.ROUTE for s in names})
+        print(f"K3 {label}: N={sc.shape[0]} scans x {px.shape[1]} points, window {size}, floor "
+              f"nodes on {counts}; launch {cfg}; {cells} distinct nodes read, 32-byte sectors "
+              f"touched per surface {sectors}; max abs err {err:.3e}, exactly equal {same}, two "
+              f"calls bit-identical {twice}; {fmt_times(t)}", flush=True)
+        if not same:
+            raise SystemExit(f"K3 {label}: kernel differs from the plain version")
+        if not twice:
+            raise SystemExit(f"K3 {label}: two calls on the same inputs differ")
+        if min(counts.values()) == 0:
+            raise SystemExit(f"K3 {label}: the scans cross no layer or lever cell")
+        rows[label] = dict(max_abs_err=err, cells=cells, sectors=sectors,
+                           routes=cfg["routes"], **t)
+    return rows
 
 
 def phase_parity(num_envs=64):
@@ -905,14 +953,14 @@ def timed_training(label, cli, argv, num_envs):
     step_after = env_step_ms(runner)
 
     # per iteration: each stage's time from the events (from the mark
-    # before it; "end" is the runner's work after the updates), and the
-    # iteration's time on the host clock
+    # before it, summed over a stage's marks; "end" is the runner's work
+    # after the updates), and the iteration's time on the host clock
     its, prev = [], None
     for stage, ev in marks:
         if stage == "start":
             its.append({})
         else:
-            its[-1][stage] = prev.elapsed_time(ev)
+            its[-1][stage] = its[-1].get(stage, 0.0) + prev.elapsed_time(ev)
         prev = ev
     wall_ms = [(b - a) * 1e3 for a, b in zip(host["start"], host["end"])]
     T = runner.cfg.num_steps_per_env
@@ -928,10 +976,12 @@ def timed_training(label, cli, argv, num_envs):
           f"clock, synchronised, start to end); launches {launches}; peak device memory "
           f"{peak / 2**30:.3f} GiB (max_memory_allocated) on {torch.cuda.get_device_name(0)}",
           flush=True)
+    step_stage = "env" if "env" in its[0] else "rollout"
     print(f"{label}: the env step alone (zero actions, no trainer) {step_before:.1f} ms "
-          f"before training, {step_after:.1f} ms after; the rollout's step "
-          + ", ".join(f"{it['rollout'] / T:.1f}" for it in its) + " ms", flush=True)
-    return runner, launches, sum(wall_ms[1:3]) / 2 if len(wall_ms) >= 3 else wall_ms[-1]
+          f"before training, {step_after:.1f} ms after; the rollout's {step_stage} stage a "
+          "step " + ", ".join(f"{it[step_stage] / T:.1f}" for it in its) + " ms", flush=True)
+    return (runner, launches, sum(wall_ms[1:3]) / 2 if len(wall_ms) >= 3 else wall_ms[-1],
+            its, peak)
 
 
 def _log_root():
@@ -949,7 +999,7 @@ def phase_train(num_envs, iters):
 
     root = _log_root()
     try:
-        runner, launches, it_ms = timed_training(
+        runner, launches, it_ms, _, _ = timed_training(
             "BBC train", train_bbc,
             ["--task", "go2_locomotion", "--num_envs", str(num_envs), "--max_iterations",
              str(iters), "--device", "cuda", "--log_root", root, "--log_every", "1"], num_envs)
@@ -980,7 +1030,7 @@ def phase_train(num_envs, iters):
             raise SystemExit("BBC train: the normaliser was never updated")
         if not same:
             raise SystemExit("BBC train: the slim checkpoint does not read back equal")
-        train_busy_share("BBC train", runner, it_ms)
+        train_busy_share("BBC train", teacher_iteration(runner), it_ms)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -996,7 +1046,7 @@ def phase_tsc_train(num_envs, iters):
 
     root = _log_root()
     try:
-        runner, launches, it_ms = timed_training(
+        runner, launches, it_ms, _, _ = timed_training(
             "TSC train", train_tsc,
             ["--num_envs", str(num_envs), "--courses", "64", "--bbc_path", TSC_BBC,
              "--randomize_start", "--randomize_base_mass", "--randomize_base_com",
@@ -1031,10 +1081,228 @@ def phase_tsc_train(num_envs, iters):
             raise SystemExit("TSC train: the continuous head's std fell below min_std")
         if not same:
             raise SystemExit("TSC train: the slim checkpoint does not read back equal")
-        train_busy_share("TSC train", runner, it_ms)
+        train_busy_share("TSC train", teacher_iteration(runner), it_ms)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _nt_to(nt, dev):
+    """A copy of a (nested) NamedTuple of tensors on `dev`."""
+    return type(nt)(*(_nt_to(x, dev) if isinstance(x, tuple) and hasattr(x, "_fields")
+                      else x.to(dev) if isinstance(x, torch.Tensor) else x for x in nt))
+
+
+def phase_vision_parity(num_envs=64, courses=8, steps=8):
+    """One depth-student iteration on the card (kernels) against the CPU
+    (plain versions), T = 8 (camera chunks of 5 and 3), from one state, the
+    teacher model_12000 and the frozen bbc_final, the same student weights
+    and the same draws (the CPU's, copied).  Command noise is off: it draws
+    from the env's generator, which differs on the card.
+
+    Tolerances: the refresh images by the crossing rule (raycast.crossing_mask,
+    the pixels it leaves out at most 0.5%), DEPTH_TOL m at worst and DEPTH_P99 m at the 99th
+    percentile, in metres; the rollout's states
+    within the SoA tolerances and its stored obs and teacher targets within
+    ROLLOUT_TOL relative over the envs that did not reset (both sides must
+    reset the same envs and the teacher pick the same modes); then on
+    identical inputs (the CPU rollout's data): the encoder's outputs and GRU
+    state within TRAIN_TOL relative, the four losses, BYOL's and the
+    parameters of the encoder, the student and BYOL's online and target
+    nets after the update within TRAIN_TOL relative."""
+    from agility_tpu_torch.cli import registry
+    from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.learn.ppo_tsc import TscPPO
+    from agility_tpu_torch.learn.vision_tsc import TscVision, VisionCfg, VisionData
+    from agility_tpu_torch.render import raycast
+
+    cfg = registry.apply_overrides(registry.get("go2")[0](), **{
+        "env.num_envs": num_envs, "obstacle.courses": courses,
+        "domain_rand.randomize_action": False})
+    bbc = ckpt.load_bbc_frozen(TSC_BBC)
+    teacher = ckpt.params_from_jax_tsc(ckpt.read_msgpack(TSC_CHECKPOINT))
+    vis = {}
+    for dev in ("cuda", "cpu"):
+        alg = TscPPO(Go2AgilityEnv(cfg, dev, seed=0), bbc, seed=0)
+        alg._ac0.load_state_dict(teacher["actor_critic"])
+        alg._est0.load_state_dict(teacher["estimator"])
+        vis[dev] = TscVision(alg.env, alg._ac0, alg._est0, alg.bbc_ac,
+                             VisionCfg(num_steps_per_env=steps), seed=0)
+    g, c = vis["cuda"], vis["cpu"]
+    c._enc0.load_state_dict(g._enc0.state_dict())
+    c._byol0.load_state_dict(g._byol0.state_dict())
+    c.cam_pitch = g.cam_pitch.cpu()
+    gts, cts = g.init_train_state(), c.init_train_state()
+    draws = c.draw()
+    gdraws = _nt_to(draws, "cuda")
+    refresh_states = []
+    render = c.render
+    c.render = lambda es, noise: refresh_states.append(es) or render(es, noise)
+    es = g.env.init_state()
+    ges, gdata, _, _ = g.rollout(gts, es, gdraws.depth)
+    ces, cdata, _, _ = c.rollout(cts, _to(es, "cpu"), draws.depth)
+    del c.render
+
+    # envs that reset draw their new state from each side's own generator
+    reset_g = (ges.episode_length != es.episode_length + steps).cpu()
+    reset_c = ces.episode_length != es.episode_length.cpu() + steps
+    keep = ~(reset_g | reset_c)
+    errs = {k: float((getattr(ges.sim, k).cpu() - getattr(ces.sim, k))[keep].abs().max())
+            for k in SOA_TOL}
+    modes = torch.equal(gdata.actions_teacher[..., 0].cpu()[:, keep],
+                        cdata.actions_teacher[..., 0][:, keep])
+    okeq = torch.equal(gdata.dyaw_ok.cpu()[:, keep], cdata.dyaw_ok[:, keep])
+    rerr = {k: _rel(getattr(gdata, k).cpu()[:, keep], getattr(cdata, k)[:, keep])
+            for k in ("obs", "actions_teacher", "prop_masked")}
+    span = c.cam.far - c.cam.near
+    masks = torch.stack([raycast.crossing_mask(c.cam, c.env.grid, x.sim.base_pos,
+                                               x.sim.base_quat, c.cam_pitch, c.env._weights(x))
+                         for x in refresh_states])
+    masks &= keep[None, :, None, None]
+    derr = (gdata.depth.cpu() - cdata.depth).abs()[masks] * span
+    n_out = int((~masks[:, keep]).sum())
+    n_px = masks[:, keep].numel()
+    d_max, d_p99 = float(derr.max()), float(torch.quantile(derr[:2 ** 24], 0.99))
+    print(f"vision parity {num_envs} envs x {courses} courses x {steps} steps (chunks "
+          f"{cdata.chunks}), rollout card vs CPU: {int((~keep).sum())} envs reset; teacher "
+          f"modes equal {modes}, dyaw-ok equal {okeq}; "
+          + ", ".join(f"{k} {v:.3e} (tol {SOA_TOL[k]:g})" for k, v in errs.items())
+          + "; stored (relative, tol " + f"{ROLLOUT_TOL:g}) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rerr.items())
+          + f"; refresh images: {n_out} of {n_px} pixels outside the crossing rule, max "
+          f"|card - CPU| {d_max:.3e} m (tol {DEPTH_TOL:g}), 99th percentile {d_p99:.3e} m (tol "
+          f"{DEPTH_P99:g})", flush=True)
+    if not torch.equal(reset_g, reset_c):
+        raise SystemExit("vision parity: the card and the CPU reset different envs")
+    if not (modes and okeq and all(np.isfinite(v) and v <= SOA_TOL[k] for k, v in errs.items())):
+        raise SystemExit("vision parity: the card's rollout disagrees with the CPU's")
+    if not all(np.isfinite(v) and v <= ROLLOUT_TOL for v in rerr.values()):
+        raise SystemExit("vision parity: the card's rollout stored other obs or targets")
+    if not (d_max <= DEPTH_TOL and d_p99 <= DEPTH_P99 and n_out <= 5e-3 * n_px):
+        raise SystemExit("vision parity: the card's depth images disagree with the CPU's")
+
+    # the encoder and the update on identical inputs: the CPU rollout's data
+    gin = VisionData(*(x.cuda() if isinstance(x, torch.Tensor) else x for x in cdata))
+    enc_err, hg, hc = 0.0, gts.hidden, cts.hidden
+    with torch.no_grad():
+        for r in range(len(cdata.chunks)):
+            go = g._encode(gts.enc, gin.depth[r], gin.prop_masked[r], hg)
+            co = c._encode(cts.enc, cdata.depth[r], cdata.prop_masked[r], hc)
+            enc_err = max(enc_err, *(_rel(a, b) for a, b in zip(go, co)))
+            hg, hc = go[-1], co[-1]
+        gl, cl = g.losses(gts, gin), c.losses(cts, cdata)
+    loss_err = {k: _rel(gl[k], cl[k]) for k in cl}
+    gm, cm = g.update(gts, gin, gdraws), c.update(cts, cdata, draws)
+    m_err = max(_rel(gm[k], cm[k]) for k in cm)
+    p_err = {k: _rel(torch.cat([t.flatten() for t in getattr(gts, k).parameters()]),
+                     torch.cat([t.flatten() for t in getattr(cts, k).parameters()]))
+             for k in ("enc", "actor", "byol", "byol_target")}
+    print(f"vision parity, on identical inputs card vs CPU (relative, tol {TRAIN_TOL:g}): "
+          f"encoder outputs and GRU state {enc_err:.3e}; losses "
+          + ", ".join(f"{k} {v:.3e}" for k, v in loss_err.items())
+          + f"; update metrics {m_err:.3e}; parameters after the update "
+          + ", ".join(f"{k} {v:.3e}" for k, v in p_err.items()), flush=True)
+    if not all(np.isfinite(v) and v <= TRAIN_TOL
+               for v in (enc_err, m_err, *loss_err.values(), *p_err.values())):
+        raise SystemExit("vision parity: the card's encoder or update disagrees with the CPU's")
+
+
+def phase_vision_train(root, iters):
+    """cli/train_tsc --use_camera at full width (camera_num_envs = 256 envs
+    on 64 courses, the full VisionCfg, the 87 x 58 camera with 32 march
+    samples), its teacher model_12000 resolved through `root` (a link, so
+    nothing is written under logs/), the frozen bbc_final, for `iters`
+    iterations.  Returns (the kernels' launches, the checkpoint written)."""
+    from agility_tpu_torch.cli import train_tsc
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.learn.ssinfogail import metrics_to_host
+
+    os.makedirs(os.path.join(root, "agility", "r5"))
+    os.symlink(TSC_CHECKPOINT, os.path.join(root, "agility", "r5",
+                                            os.path.basename(TSC_CHECKPOINT)))
+    label = "TSC vision train"
+    runner, launches, it_ms, its, peak = timed_training(
+        label, train_tsc,
+        ["--use_camera", "--courses", "64", "--bbc_path", TSC_BBC, "--log_root", root,
+         "--proj_name", "agility", "--resumeid", "r5", "--exptid", "vis", "--max_iterations",
+         str(iters), "--device", "cuda", "--log_every", "1"], VISION_ENVS)
+    alg, ts = runner.alg, runner.train_state
+    if runner.env.num_envs != VISION_ENVS:
+        raise SystemExit(f"{label}: {runner.env.num_envs} envs, not camera_num_envs")
+    T, R = runner.cfg.num_steps_per_env, alg.n_refresh()
+    m = metrics_to_host(runner.last_metrics)
+    finite = all(bool(torch.isfinite(p).all()) for mod in (ts.enc, ts.actor, ts.byol,
+                                                           ts.byol_target)
+                 for p in mod.parameters()) and all(map(np.isfinite, m.values()))
+    for i, it in enumerate(its):
+        total = sum(it.values())
+        print(f"{label} iteration {i}: the ray-march {it['render'] / R:.2f} ms a refresh "
+              f"({R} refreshes, {100 * it['render'] / total:.2f}% of the iteration's events); "
+              f"estimator and proprio before it {it['prep']:.1f} ms, render and process "
+              f"{it['render'] + it['process']:.1f} ms, encode "
+              f"{it['encode']:.1f}, heads/commands/BBC {it['act']:.1f}, env step "
+              f"{it['env']:.1f}, update {it['update']:.1f}, BYOL {it['byol']:.1f} ms",
+              flush=True)
+    path = ckpt.latest(runner.log_dir, prefix="vision")
+    back = ckpt.params_from_jax_vision(ckpt.read_msgpack(path))
+    same = all(torch.equal(v.cpu(), back[name][k]) for name, mod in (
+        ("encoder", ts.enc), ("actor_critic", ts.actor)) for k, v in mod.state_dict().items())
+    print(f"{label}: {VISION_ENVS} envs x 64 courses, it {ts.it}; metrics {json.dumps(m)}; "
+          f"checkpoint {os.path.basename(path)} read back by params_from_jax_vision, tensors "
+          f"equal {same}; peak {peak / 2**30:.3f} GiB", flush=True)
+    want = dict(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
+                terrain_window=T * iters, scandots=T * iters)
+    if launches != want:
+        raise SystemExit(f"{label}: launches {launches}, want {want}")
+    if not finite:
+        raise SystemExit(f"{label}: a parameter or metric is not finite")
+    if os.path.basename(path) != f"vision_{iters}.msgpack" or not same:
+        raise SystemExit(f"{label}: vision_{iters}.msgpack missing or not read back equal")
+
+    def one_iteration():
+        runner.train_state, runner.env_state, _ = alg.train_iteration(ts, runner.env_state)
+    train_busy_share(label, one_iteration, it_ms)
+    return launches, path
+
+
+def phase_vision_play(num_envs, steps, student):
+    """cli/play_tsc --use_camera at `num_envs` envs on 64 courses with the
+    teacher model_12000 (its estimator), the frozen bbc_final and the
+    student checkpoint `student`, for `steps` control steps."""
+    from agility_tpu_torch.cli import play_tsc
+    from agility_tpu_torch.physics import heightfield as hf
+
+    args = play_tsc.get_args(["--device", "cuda", "--num_envs", str(num_envs), "--courses",
+                              "64", "--steps", str(steps), "--checkpoint", TSC_CHECKPOINT,
+                              "--bbc_path", TSC_BBC, "--use_camera", "--vision_checkpoint",
+                              student])
+    _counts_zero()
+    res = play_tsc.run(args)
+    launches = _counts()
+    env, s = res["env"], res["state"]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (*s.sim, s.obs_buf, s.obs_bbc_buf, s.seesaw_theta))
+    pos = s.sim.base_pos
+    floor = hf.sample_height(env.grid, pos[:, 0], pos[:, 1], env._weights(s))
+    med_h = float((pos[:, 2] - floor).median())
+    want = dict(contact_lcp=env.engine_cfg.decimation * res["steps"],
+                terrain_window=res["steps"], scandots=res["steps"])
+    print(f"TSC vision play: {num_envs} envs x 64 courses x {steps} control steps (camera every "
+          f"{res['policy'].interval}), launches {launches} (want {want}), all states finite "
+          f"{finite}, median base height over the folded floor {med_h:.4f} m; episodes "
+          f"{res['episodes']}, course completions {res['completions']}, "
+          f"{res['env_steps_per_s']:.1f} env-steps/s on {torch.cuda.get_device_name(0)}",
+          flush=True)
+    if launches != want:
+        raise SystemExit("TSC vision play: a kernel's launch count differs from the steps run")
+    if not finite:
+        raise SystemExit("TSC vision play: non-finite state")
+    if not 0.15 <= med_h <= 0.45:
+        raise SystemExit("TSC vision play: median base height over the floor outside "
+                         "[0.15, 0.45] m")
+    tsc_busy_share(res, num_envs)
+    return launches
 
 
 def env_step_ms(runner, steps=8):
@@ -1054,20 +1322,28 @@ def env_step_ms(runner, steps=8):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def train_busy_share(label, runner, it_ms):
+def teacher_iteration(runner):
+    """One more train iteration of a BBC or TSC teacher runner, in place."""
+    def run():
+        out = runner.alg.train_iteration(runner.train_state, runner.env_state, runner.disc_hist,
+                                         runner.current_iteration)
+        runner.train_state, runner.env_state, runner.disc_hist, _ = out
+    return run
+
+
+def train_busy_share(label, one_iteration, it_ms):
     """Device ops and busy time (the union of kernel, copy and fill
-    intervals) of one more train iteration under torch.profiler, against
-    the unprofiled iteration time.  A reading, not a gate."""
+    intervals) of one more train iteration (`one_iteration()`) under
+    torch.profiler, against the unprofiled iteration time.  A reading, not
+    a gate.  Returns the busy share."""
     from torch.profiler import ProfilerActivity, profile as trace
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with trace(activities=[ProfilerActivity.CUDA]) as prof:
-        out = runner.alg.train_iteration(runner.train_state, runner.env_state, runner.disc_hist,
-                                         runner.current_iteration)
+        one_iteration()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    runner.train_state, runner.env_state, runner.disc_hist, _ = out
     spans = np.array(sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
                             if e.device_type() == torch.autograd.DeviceType.CUDA), dtype=np.int64)
     busy = 0
@@ -1078,6 +1354,7 @@ def train_busy_share(label, runner, it_ms):
     print(f"{label} profile: one iteration (profiled {wall:.1f} ms): {len(spans)} device ops, "
           f"device busy {busy / 1e6:.2f} ms, {100 * busy / 1e6 / it_ms:.1f}% of the unprofiled "
           f"{it_ms:.1f} ms iteration", flush=True)
+    return busy / 1e6 / it_ms
 
 
 def main():
@@ -1111,20 +1388,31 @@ def main():
 
     rows, t = {}, time.perf_counter()
     bbc = bbc_case()
-    for name, phase in (("K1", lambda: phase_k1([("bbc", *bbc), ("tsc", *tsc_case())])),
-                        ("K2", lambda: phase_k2(bbc)), ("K3", phase_k3),
-                        ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
-                        ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
-                        ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS)),
-                        ("train parity", phase_train_parity),
-                        ("BBC train", lambda: phase_train(NUM_ENVS, TRAIN_ITERS)),
-                        ("TSC train parity", phase_tsc_train_parity),
-                        ("TSC train", lambda: phase_tsc_train(TSC_ENVS, TRAIN_ITERS))):
-        rows[name] = phase()
-        print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
+    vis_root = _log_root()
+    try:
+        for name, phase in (
+                ("K1", lambda: phase_k1([("bbc", *bbc), ("tsc", *tsc_case()),
+                                         ("tsc_vision", *tsc_case(VISION_ENVS))])),
+                ("K2", lambda: phase_k2(bbc)), ("K3", phase_k3),
+                ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
+                ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
+                ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS)),
+                ("train parity", phase_train_parity),
+                ("BBC train", lambda: phase_train(NUM_ENVS, TRAIN_ITERS)),
+                ("TSC train parity", phase_tsc_train_parity),
+                ("TSC train", lambda: phase_tsc_train(TSC_ENVS, TRAIN_ITERS)),
+                ("vision parity", phase_vision_parity),
+                ("vision train", lambda: phase_vision_train(vis_root, TRAIN_ITERS)),
+                ("vision play", lambda: phase_vision_play(VISION_ENVS, VISION_STEPS,
+                                                          rows["vision train"][1]))):
+            rows[name] = phase()
+            print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
+    finally:
+        shutil.rmtree(vis_root, ignore_errors=True)
 
     paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"],
-                 bbc_train=rows["BBC train"], tsc_train=rows["TSC train"])
+                 bbc_train=rows["BBC train"], tsc_train=rows["TSC train"],
+                 tsc_vision_train=rows["vision train"][0], tsc_vision_play=rows["vision play"])
     keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share")
     kernels = []
     # each kernel's headline numbers are those of its first shape: K1 at the

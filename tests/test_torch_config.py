@@ -22,6 +22,7 @@ from agility_tpu.envs import config as jcfg
 from agility_tpu.envs import tsc_config as jtsc
 from agility_tpu.learn import ppo_tsc as jppo
 from agility_tpu.learn import ssinfogail as jgail
+from agility_tpu.learn import vision_tsc as jvis
 from agility_tpu.terrain import generator as jgen
 from agility_tpu.terrain import obstacle as jobst
 from agility_tpu_torch.cli import registry as treg
@@ -30,6 +31,7 @@ from agility_tpu_torch.envs import config as tcfg
 from agility_tpu_torch.envs import tsc_config as ttsc
 from agility_tpu_torch.learn import ppo_tsc as tppo
 from agility_tpu_torch.learn import ssinfogail as tgail
+from agility_tpu_torch.learn import vision_tsc as tvis
 from agility_tpu_torch.terrain import generator as tgen
 from agility_tpu_torch.terrain import obstacle as tobst
 
@@ -65,6 +67,16 @@ def test_algo_cfg_equal():
         got, want = treg.get(task)[1](), jreg.get(TASKS[task])[1]()
         assert type(got) is kind
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_vision_cfg_equal():
+    """The port's VisionCfg (the depth student's trainer) has the JAX
+    package's fields and defaults, and the camera config it reads
+    (DepthCfg) equals JAX's."""
+    assert ([f.name for f in dataclasses.fields(tvis.VisionCfg)]
+            == [f.name for f in dataclasses.fields(jvis.VisionCfg)])
+    assert dataclasses.asdict(tvis.VisionCfg()) == dataclasses.asdict(jvis.VisionCfg())
+    assert dataclasses.asdict(ttsc.DepthCfg()) == dataclasses.asdict(jtsc.DepthCfg())
 
 
 def test_metric_writer_is_byte_identical():
@@ -172,5 +184,5 @@ def test_public_device_defaults_are_cuda():
                  "physics.constants.ModelConsts.from_model",
                  "envs.go2_locomotion.state_from_jax", "envs.go2_agility.state_from_jax",
                  "envs.mocap.synthetic", "learn.networks.RunningNormalizer.__init__",
-                 "learn.replay.Ring.__init__"):
+                 "learn.replay.Ring.__init__", "render.raycast.make_camera"):
         assert f"agility_tpu_torch.{want}" in found, want

@@ -210,3 +210,33 @@ def test_ppo_update_on_card_matches_cpu(card):
         a = torch.cat([p.detach().flatten() for p in getattr(gts, k).parameters()]).cpu()
         b = torch.cat([p.detach().flatten() for p in getattr(cts, k).parameters()])
         assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-4, k
+
+
+@pytest.mark.cuda
+def test_vision_iteration_on_card(card):
+    """One depth-student iteration (T = 8: camera chunks of 5 and 3, the
+    distillation update, two BYOL minibatches) of 8 envs on 2 courses on
+    the card: each control step launches K1 four times and K2 and K3 once,
+    every metric and parameter is finite, and the update moved the encoder
+    (chip_smoke.py's `vision parity` holds it against the CPU at 64 envs)."""
+    from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
+    from agility_tpu_torch.envs.tsc_config import tsc_smoke_cfg
+    from agility_tpu_torch.io.checkpoint import load_bbc_frozen
+    from agility_tpu_torch.learn.ppo_tsc import TscPPO
+    from agility_tpu_torch.learn.vision_tsc import TscVision, VisionCfg
+
+    alg = TscPPO(Go2AgilityEnv(tsc_smoke_cfg(8, 2), "cuda", seed=0), load_bbc_frozen(None), seed=0)
+    vision = TscVision(alg.env, alg._ac0, alg._est0, alg.bbc_ac,
+                       VisionCfg(num_steps_per_env=8, byol_minibatches=2), seed=0)
+    ts = vision.init_train_state()
+    enc0 = ts.enc.backbone.fc0.weight.detach().clone()
+    es = alg.env.init_state()
+    counts = lambda: (k1.contact_lcp.launches, k2.terrain_window.launches, k3.scandots.launches)
+    before = counts()
+    ts, es, m = vision.train_iteration(ts, es)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, counts())) == (32, 8, 8)
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert all(bool(torch.isfinite(p).all()) for mod in (ts.enc, ts.actor, ts.byol)
+               for p in mod.parameters())
+    assert not torch.equal(ts.enc.backbone.fc0.weight, enc0)

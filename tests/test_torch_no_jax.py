@@ -6,7 +6,10 @@ the CPU; a second one plays two hierarchical TSC steps of 2 envs on a
 2-course world; a third trains the BBC for two iterations of 8 envs through
 cli/train_bbc; a fourth trains the TSC teacher for two iterations of 4 envs
 on 2 courses through cli/train_tsc (full TscAlgoCfg), then resumes from
-the checkpoints it wrote for one more."""
+the checkpoints it wrote for one more; a fifth trains the depth student for
+one iteration of 4 envs on 2 courses through cli/train_tsc --use_camera
+(full VisionCfg) and plays it for a few steps through cli/play_tsc
+--use_camera from the checkpoint it wrote."""
 import os
 import subprocess
 import sys
@@ -108,6 +111,39 @@ TSC_TRAIN_SCRIPT = textwrap.dedent("""
 """)
 
 
+VISION_SCRIPT = textwrap.dedent("""
+    import os, sys, tempfile
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
+    import torch
+    from agility_tpu_torch.cli import play_tsc, train_tsc
+    from agility_tpu_torch.io import checkpoint as ckpt
+    torch.set_num_threads(1)   # small ops: one thread is faster and spares the suite's cores
+    with tempfile.TemporaryDirectory() as d:
+        r = train_tsc.run(train_tsc.get_args([
+            "--use_camera", "--debug", "--device", "cpu", "--num_envs", "4", "--courses", "2",
+            "--max_iterations", "1", "--log_root", d, "--bbc_path",
+            "logs/bbc_r5/bbc_final.msgpack"]))
+        run_dir = os.path.join(d, "agility", "000")
+        assert [n for n in os.listdir(run_dir) if not n.startswith("events")] == [
+            "vision_1.msgpack"]
+        assert r.train_state.it == 1 and r.current_iteration == 1
+        assert all(bool(torch.isfinite(p).all()) for p in r.train_state.enc.parameters())
+        res = play_tsc.run(play_tsc.get_args([
+            "--device", "cpu", "--num_envs", "2", "--courses", "2", "--steps", "6",
+            "--use_camera", "--vision_checkpoint", os.path.join(run_dir, "vision_1.msgpack")]))
+        assert res["policy"].t == 6
+        for a, b in zip(res["policy"].enc.state_dict().values(),
+                        r.train_state.enc.state_dict().values()):
+            assert torch.equal(a, b)
+        assert bool(torch.isfinite(res["state"].obs_buf).all())
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
+                                                                  "agility_tpu."))
+                   for k, v in sys.modules.items() if v is not None)
+    print("ok")
+""")
+
+
 def _run(script):
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")]))}
@@ -131,3 +167,7 @@ def test_bbc_train_without_jax():
 
 def test_tsc_train_without_jax():
     _run(TSC_TRAIN_SCRIPT)
+
+
+def test_vision_train_and_play_without_jax():
+    _run(VISION_SCRIPT)

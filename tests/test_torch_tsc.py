@@ -284,5 +284,10 @@ def test_play_tsc_runs_on_cpu(capsys):
     assert s.obs_buf.shape == (4, 800) and s.obs_bbc_buf.shape == (4, 671)
     text = capsys.readouterr().out
     assert "course completions" in text and "mean goal index at end" in text
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        play_tsc.build(play_tsc.get_args(["--device", "cpu", "--use_camera"]))
+    # --use_camera: the depth student (untrained without --vision_checkpoint)
+    env, pol, _ = play_tsc.build(play_tsc.get_args(["--device", "cpu", "--use_camera",
+                                                    "--num_envs", "4", "--courses", "2"]))
+    assert type(pol).__name__ == "StudentPolicy" and pol.interval == env.cfg.depth.update_interval
+    s, _ = pol.step(env, env.init_state())
+    assert pol.t == 1 and bool(torch.isfinite(s.obs_buf).all())
+    assert "no vision checkpoint" in capsys.readouterr().out

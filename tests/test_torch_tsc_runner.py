@@ -130,8 +130,10 @@ def test_tsc_slim_fallback_restores_weights(tmp_path):
 
 
 def test_train_tsc_flags(tmp_path):
-    """The CLI's flags reach the config; --use_camera raises until the
-    depth student is ported; --device cuda exits where torch sees no card."""
+    """The CLI's flags reach the config; --use_camera builds the depth
+    student's runner at depth.camera_num_envs (256) envs unless --num_envs
+    says otherwise, in <log_root>/<proj_name>/<exptid>; --device cuda exits
+    where torch sees no card."""
     args = train_tsc.get_args([
         "--debug", "--device", "cpu", "--num_envs", "4", "--courses", "2",
         "--randomize_start", "--randomize_base_mass", "--randomize_base_com",
@@ -144,8 +146,11 @@ def test_train_tsc_flags(tmp_path):
             cfg.domain_rand.push_robots) == (True, True, True)
     assert r.log_dir == os.path.join(str(tmp_path), "agility", "000")
     assert dict(vars(r.cfg)) == dict(vars(TscAlgoCfg()))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_tsc.build(train_tsc.get_args(["--use_camera", "--device", "cpu"]))
+    v = train_tsc.build(train_tsc.get_args(["--use_camera", "--device", "cpu", "--courses", "2",
+                                            "--log_root", str(tmp_path), "--exptid", "vis"]))
+    assert type(v).__name__ == "VisionRunner" and v.env.num_envs == 256
+    assert v.log_dir == os.path.join(str(tmp_path), "agility", "vis")
+    assert v.train_state.hidden.shape == (256, 512) and v.env_state.obs_buf.shape == (256, 800)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             train_tsc.build(train_tsc.get_args(["--debug"]))
