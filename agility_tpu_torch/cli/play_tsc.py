@@ -11,15 +11,17 @@ index reached and env-steps/s:
         --bbc_path logs/bbc_r5/bbc_final.msgpack [--use_camera --vision_checkpoint
         logs/agility/vis/vision_30000.msgpack]
 
-The checkpoints are given as files (the JAX command resolves them from
---log_root/--proj_name/--exptid).  The student's camera noise comes from a
-generator seeded with seed + 2; without --vision_checkpoint it runs an
-untrained student.  Float32 matrix products and convolutions run in full
-float32 (TF32 off).
+The teacher is --checkpoint or, without it, the newest model_<n>.msgpack in
+<log_root>/<proj_name>/<exptid>/ (where train_tsc writes); the student is
+--vision_checkpoint or the newest vision_<n>.msgpack there, and without
+either an untrained one.  The student's camera noise comes from a
+generator seeded with seed + 2.  Float32 matrix products and convolutions
+run in full float32 (TF32 off).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -36,7 +38,12 @@ WARMUP = 10  # leading control steps left out of the env-steps/s figure
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate a trained TSC policy")
     p.add_argument("--task", default="go2_agility")
-    p.add_argument("--checkpoint", default=None, help="TSC teacher checkpoint (.msgpack)")
+    p.add_argument("--checkpoint", default=None,
+                   help="TSC teacher checkpoint (.msgpack); wins over --log_root/--proj_name/"
+                        "--exptid")
+    p.add_argument("--log_root", default="logs")
+    p.add_argument("--proj_name", default="agility")
+    p.add_argument("--exptid", default="000")
     p.add_argument("--bbc_path", default=None, help="frozen BBC checkpoint (.msgpack)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--num_envs", type=int, default=64)
@@ -47,7 +54,8 @@ def get_args(argv=None):
                    help="evaluate the depth student: render depth every update_interval "
                         "steps, hold the encoder's outputs between refreshes")
     p.add_argument("--vision_checkpoint", default=None,
-                   help="depth student checkpoint (vision_<step>.msgpack)")
+                   help="depth student checkpoint (vision_<step>.msgpack); wins over the "
+                        "newest one in <log_root>/<proj_name>/<exptid>")
     return p.parse_args(argv)
 
 
@@ -72,9 +80,10 @@ def build(args):
            "domain_rand.randomize_friction": False})
     env = Go2AgilityEnv(cfg, device, seed=args.seed)
     tsc = bbc = None
-    if args.checkpoint:
-        print(f"loading {args.checkpoint}")
-        tsc = ckpt.params_from_jax_tsc(ckpt.read_msgpack(args.checkpoint))
+    path = args.checkpoint or ckpt.latest(run_dir(args))
+    if path:
+        print(f"loading {path}")
+        tsc = ckpt.params_from_jax_tsc(ckpt.read_msgpack(path))
     else:
         print("WARNING: no checkpoint — evaluating an untrained policy")
     if args.bbc_path:
@@ -88,14 +97,21 @@ def build(args):
     return env, policy, device
 
 
+def run_dir(args) -> str:
+    """The run directory the checkpoints are resolved in."""
+    return os.path.join(args.log_root, args.proj_name, args.exptid)
+
+
 def student(env, teacher: TscPolicy, args) -> StudentPolicy:
     """The depth student on the teacher's estimator and the frozen BBC, its
-    encoder and heads from --vision_checkpoint."""
+    encoder and heads from --vision_checkpoint or the run directory's newest
+    vision checkpoint."""
     vision = TscVision(env, teacher.ac, teacher.est, teacher.bbc, VisionCfg(), seed=args.seed)
     vts = vision.init_train_state()
-    if args.vision_checkpoint:
-        print(f"loading student {args.vision_checkpoint}")
-        sd = ckpt.params_from_jax_vision(ckpt.read_msgpack(args.vision_checkpoint))
+    path = args.vision_checkpoint or ckpt.latest(run_dir(args), prefix="vision")
+    if path:
+        print(f"loading student {path}")
+        sd = ckpt.params_from_jax_vision(ckpt.read_msgpack(path))
         vts.enc.load_state_dict(sd["encoder"])
         vts.actor.load_state_dict(sd["actor_critic"])
     else:

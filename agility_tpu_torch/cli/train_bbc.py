@@ -1,12 +1,16 @@
 """BBC training entry point (counterpart of agility_tpu/cli/train_bbc.py):
 
     python -m agility_tpu_torch.cli.train_bbc --task go2_locomotion --num_envs 4096 \
-        --max_iterations 1500 [--resume] [--device cuda]
+        --max_iterations 1500 [--resume] [--device cuda] [--mocap_dir D]
 
 Checkpoints land in <log_root>/<experiment>/<experiment_idx>/ (see
-learn/runner.py).  The JAX package's --multihost and --shard (a device
-mesh) are not ported; --mocap_dir raises, as the env does: the port trains
-on the synthetic clips.  TF32 is off for matrix products and convolutions.
+learn/runner.py).  With --mocap_dir the env's reset poses and the
+discriminator's expert transitions come from the clips under
+D/mocap_all_lb (labelled, the category in each file name) and
+D/mocap_all_ulb (unlabelled, optional), read by envs/mocap.load_dir;
+without it, from the synthetic gait clips.  The JAX package's --multihost
+and --shard (a device mesh) are not ported.  TF32 is off for matrix
+products and convolutions.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ def get_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--checkpoint", default=None, help="explicit checkpoint path")
     p.add_argument("--mocap_dir", default=None,
-                   help="mocap dataset root; not supported by the port (synthetic clips)")
+                   help="mocap dataset root (contains mocap_all_lb/ and "
+                        "mocap_all_ulb/); synthetic gaits if omitted")
     p.add_argument("--log_root", default="logs")
     p.add_argument("--log_every", type=int, default=10)
     for flag in DR_FLAGS:

@@ -17,6 +17,7 @@ Observation layout:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -103,8 +104,6 @@ class Go2LocomotionEnv:
 
     def __init__(self, cfg: Go2LocomotionCfg, device="cuda", seed: int = 0,
                  motion: Optional[mocap_mod.MotionData] = None):
-        if cfg.mocap_dir:
-            raise NotImplementedError("the port runs the synthetic mocap clips only")
         if cfg.env.recovery_init_prob > 0.0:
             raise NotImplementedError("recovery init is not ported (off in the go2 task)")
         self.cfg = cfg
@@ -127,9 +126,18 @@ class Go2LocomotionEnv:
         td = terrain_gen.generate(cfg.terrain, seed=cfg.seed)
         self.grid = hf.from_numpy(td.height, td.hscale, origin_xy=td.origin, device=self.device)
         self.env_origins = f32(terrain_gen.assign_env_origins(td, N, cfg.terrain, seed=cfg.seed))
-        self.motion = motion or mocap_mod.synthetic(
-            self.model, cfg.env.mocap_category_all, active=cfg.env.mocap_category,
-            device=self.device)
+        if motion is not None:
+            self.motion = motion
+        elif cfg.mocap_dir:
+            # a missing mocap_all_ulb globs empty: no unlabelled set
+            self.motion = mocap_mod.load_dir(
+                os.path.join(cfg.mocap_dir, "mocap_all_lb"),
+                os.path.join(cfg.mocap_dir, "mocap_all_ulb"),
+                cfg.env.mocap_category_all, self.device)
+        else:
+            self.motion = mocap_mod.synthetic(
+                self.model, cfg.env.mocap_category_all, active=cfg.env.mocap_category,
+                device=self.device)
 
         m = self.model
         self.feet_idx = m.match_bodies("foot")

@@ -3,9 +3,11 @@
 Clips live in flat device tables; state-init frames and the discriminator's
 expert transitions are sampled on the device (clip by weight, time
 uniform, lerp + slerp) from an explicit torch.Generator.  The deterministic
-halves (`frames_at`, `transition_frames`) take the draws as arguments.  The external
-mocap dataset is not part of the repository, so the port carries only the
-procedural CPG gait clips of `synthetic()`.
+halves (`frames_at`, `transition_frames`) take the draws as arguments.
+`load_dir` reads the reference's JSON clips ({FrameDuration, MotionWeight,
+Frames[(n, 61)]}, PyBullet leg order, the category in the file name) from a
+labelled and an optional unlabelled directory; without a dataset,
+`synthetic()` makes procedural CPG gait clips.
 
 Frame layout (49 columns):
   [0:3]   root position (world)          [3:7]   root quaternion xyzw
@@ -15,6 +17,9 @@ Frame layout (49 columns):
 """
 from __future__ import annotations
 
+import glob
+import json
+import os
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -32,6 +37,35 @@ JOINT_VEL = slice(37, 49)
 FRAME_DIM = 49
 
 
+def _reorder_pb_to_fk(frames: np.ndarray) -> np.ndarray:
+    """PyBullet [FR, FL, RR, RL] -> [FL, FR, RL, RR] with hip sign flips, the
+    per-leg foot-to-ground shift and the root quaternion normalised with
+    w >= 0 (reference motion_loader.py:251-302), in the frames' own dtype."""
+    out = frames.copy()
+
+    def swap_legs(block):   # (F, 12) ordered FR FL RR RL -> FL FR RL RR
+        fr, fl, rr, rl = np.split(block, 4, axis=1)
+        return np.hstack([fl, fr, rl, rr])
+
+    jp = swap_legs(frames[:, JOINT_POS])
+    jp[:, [0, 3, 6, 9]] *= -1.0     # hip sign flip (all legs)
+    jv = swap_legs(frames[:, JOINT_VEL])
+    jv[:, [0, 3, 6, 9]] *= -1.0
+
+    toes = swap_legs(frames[:, TOE_POS]).reshape(-1, 4, 3)
+    mins = toes[:, :, 2].min(axis=0)                 # per-leg min height
+    out[:, 2] -= float(mins.mean())                  # shift root down
+    toes[:, :, 2] -= mins[None, :]                   # feet touch ground
+    out[:, JOINT_POS] = jp
+    out[:, JOINT_VEL] = jv
+    out[:, TOE_POS] = toes.reshape(-1, 12)
+
+    q = out[:, ROOT_ROT]
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    out[:, ROOT_ROT] = np.where(q[:, 3:4] < 0, -q, q)
+    return out
+
+
 class MotionData(NamedTuple):
     categories: tuple
     frames: torch.Tensor        # (F, 49) on the device
@@ -44,6 +78,12 @@ class MotionData(NamedTuple):
     label: torch.Tensor         # (K,) int64 category index
     ulb_frames: torch.Tensor    # (F2, 49) the unlabelled trajectory
     ulb_dur: float              # its frame duration [s]
+
+    def host(self) -> "MotionData":
+        """The same tables as numpy arrays (for io/gait.py, which reads
+        them on the host)."""
+        return self._replace(**{k: v.cpu().numpy() for k, v in self._asdict().items()
+                                if isinstance(v, torch.Tensor)})
 
     def sample_frames(self, gen: torch.Generator, c_idx: torch.Tensor, dt: float,
                       disc_obs_len: int = 2) -> torch.Tensor:
@@ -125,8 +165,41 @@ def disc_obs_from_frames(frames: torch.Tensor, default_dof_pos, obs_scales) -> t
                       key_pos, contact], dim=-1)
 
 
-def _build(clips, labels, weights, durs, ulb_dur, categories, device) -> MotionData:
-    """The flat tables; with no unlabelled dataset the labelled frames serve
+def load_dir(lb_dir: str, ulb_dir: Optional[str], categories: Sequence[str],
+             device="cuda") -> MotionData:
+    """Mocap JSON clips ({FrameDuration, MotionWeight, Frames[(n, 61)]}) from a
+    labelled directory (each clip's category from its file name) and an
+    optional unlabelled one, whose files are concatenated into the
+    unlabelled trajectory; a missing or empty unlabelled directory leaves
+    the labelled frames in its place."""
+    def read(path):
+        with open(path) as f:
+            d = json.load(f)
+        return d, _reorder_pb_to_fk(np.asarray(d["Frames"], np.float64)[:, :FRAME_DIM])
+
+    clips, labels, weights, durs = [], [], [], []
+    for path in sorted(glob.glob(os.path.join(lb_dir, "*"))):
+        name = os.path.basename(path)
+        label = next((i for i, c in enumerate(categories) if c in name), None)
+        if label is None:
+            raise ValueError(f"no category of {categories} in {name}")
+        d, frames = read(path)
+        clips.append(frames)
+        labels.append(label)
+        weights.append(float(d["MotionWeight"]))
+        durs.append(float(d["FrameDuration"]))
+    ulb = []
+    ulb_dur = durs[0]
+    if ulb_dir:
+        for path in sorted(glob.glob(os.path.join(ulb_dir, "*"))):
+            d, frames = read(path)
+            ulb.append(frames)
+            ulb_dur = float(d["FrameDuration"])
+    return _build(clips, labels, weights, durs, ulb, ulb_dur, categories, device)
+
+
+def _build(clips, labels, weights, durs, ulb, ulb_dur, categories, device) -> MotionData:
+    """The flat tables; with no unlabelled clips the labelled frames serve
     as the unlabelled trajectory, as in the JAX package."""
     starts = np.cumsum([0] + [len(c) for c in clips[:-1]])
     nframes = np.asarray([len(c) for c in clips])
@@ -147,7 +220,9 @@ def _build(clips, labels, weights, durs, ulb_dur, categories, device) -> MotionD
         clip_dur=t(durs, torch.float32),
         clip_len=t(((nframes - 1) * np.asarray(durs)).astype(np.float32), torch.float32),
         cat_logits=t(logits, torch.float32), weights=t(w, torch.float32),
-        label=t(lab, torch.int64), ulb_frames=frames, ulb_dur=float(ulb_dur))
+        label=t(lab, torch.int64),
+        ulb_frames=t(np.concatenate(ulb).astype(np.float32), torch.float32) if ulb else frames,
+        ulb_dur=float(ulb_dur))
 
 
 _GAIT_PHASES = {
@@ -208,4 +283,4 @@ def synthetic(model, categories: Sequence[str], n_frames: int = 120,
             labels.append(label)
             weights.append(1.0)
             durs.append(frame_dur)
-    return _build(clips, labels, weights, durs, frame_dur, categories, device)
+    return _build(clips, labels, weights, durs, [], frame_dur, categories, device)

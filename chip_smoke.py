@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels from the
 repository's sources, checks each against its plain-torch version at the main
 paths' shapes, then drives the port's serving paths at full width — the
-BBC policy rollout (agility_tpu_torch.cli.play_bbc), the TSC obstacle-
-course evaluation (agility_tpu_torch.cli.play_tsc) and the depth student's
-(play_tsc --use_camera) — and its training paths (cli/train_bbc,
-cli/train_tsc and train_tsc --use_camera), and checks what comes out.
+BBC policy rollout with its gait verdict (agility_tpu_torch.cli.play_bbc
+--gait_bands), the TSC obstacle-course evaluation (agility_tpu_torch.cli.
+play_tsc, its teacher resolved by run name) and the depth student's
+(play_tsc --use_camera) — its training paths (cli/train_bbc, on the
+synthetic clips and on clip files through --mocap_dir, cli/train_tsc and
+train_tsc --use_camera) and the policy export, and checks what comes out.
 
     python3 chip_smoke.py            # needs one CUDA card; exits nonzero without one
 
@@ -54,11 +56,21 @@ Phases (any failure exits nonzero and prints no result line):
                (active ceiling contacts, printed); envs that the step resets are
                compared on their pre-reset (terminal) features, within 1e-3.
   7. BBC slice — play_bbc at 4096 envs on the rough-terrain Go2LocomotionCfg with
-               logs/bbc_r5/bbc_15k.msgpack for 250 control steps; K1 launches =
-               substeps run, K2 launches = control steps + 1, every state finite,
-               median base height over the terrain in [0.15, 0.45] m.
+               logs/bbc_r5/bbc_15k.msgpack for 250 control steps (trot, vx 1.0)
+               and --gait_bands on the port's assets/gait_bands_real.json; K1
+               launches = substeps run, K2 launches = control steps + 1, every
+               state finite, median base height over the terrain in [0.15,
+               0.45] m; the gait report (duty, stride_hz, diag_sync after the
+               first 100 steps, against the real-clip trot bands) printed with
+               the JAX package's trot line of logs/bbc_r5/gait_report_28k.txt
+               beside it (another checkpoint, 8 envs, 300 steps on a CPU: not
+               a comparable number).  Gated only on the stats being finite
+               and physical (duty and sync in [0, 1], stride_hz in [0, 1/(2
+               dt)]): the verdict is a reading, not a gate.
   8. TSC slice — play_tsc at 6144 envs on 64 courses with the TSC teacher
-               logs/agility/r5/model_12000.msgpack and the frozen BBC
+               resolved through --log_root/--proj_name/--exptid (a temporary
+               root whose agility/r5 links logs/agility/r5/model_12000.msgpack;
+               the weights loaded must equal that file's) and the frozen BBC
                logs/bbc_r5/bbc_final.msgpack for 100 control steps; K1 launches =
                4 x (steps + 1), K2 = K3 = steps + 1, every state finite, median
                base height over the folded floor in [0.15, 0.45] m.
@@ -85,7 +97,24 @@ Phases (any failure exits nonzero and prints no result line):
                step alone (zero actions) timed before and after training; then
                one more iteration under torch.profiler for the device's busy
                share.
- 11. TSC train parity — one TSC teacher train iteration of 64 envs on 8
+ 11. BBC mocap — a clip set written in the reference's layout
+               (tests/torch_cases.write_clip_dir: two clips of each mode at 1/30
+               and 1/60 s a frame, 72 and 90 frames, unequal motion weights,
+               and two unlabelled files) into a temporary <dir>/mocap_all_lb and
+               mocap_all_ulb; envs/mocap.load_dir onto the card bit-equal to
+               load_dir on the CPU; then cli/train_bbc --mocap_dir <dir> at 4096
+               envs on go2_locomotion with the full AlgoCfg for 1 iteration: K1
+               launches = 4 x 24, K2 = 24, every parameter and metric finite,
+               the motion tables' clip and frame counts those of the files, every
+               mode among the expert labels, the checkpoint read back to equal
+               tensors; prints the build, iteration and preload times.
+ 12. export — io/export.export_policy (torch.export) of the BBC inference
+               policy with logs/bbc_r5/bbc_final.msgpack at 4096 observations
+               on the card, then load_policy: the loaded program's actions
+               within 1e-6 absolute of the eager policy's on the same obs;
+               export_params_npz of params_to_jax's flax tree: the same keys
+               (jax.tree_util.keystr paths, sorted) and arrays, key for key.
+ 13. TSC train parity — one TSC teacher train iteration of 64 envs on 8
                courses (T = 8, the go2 config with randomize_start and the
                base mass and CoM randomised, command noise off: its draws come
                from the env's generator, which differs on the card) on the
@@ -96,7 +125,7 @@ Phases (any failure exits nonzero and prints no result line):
                ROLLOUT_TOL (envs reset on either side excluded; both must
                reset the same envs); then GAE, PPO and DAgger on identical
                inputs within TRAIN_TOL, the learning rate equal.
- 12. TSC train — cli/train_tsc at 6144 envs on 64 courses with the frozen
+ 14. TSC train — cli/train_tsc at 6144 envs on 64 courses with the frozen
                logs/bbc_r5/bbc_final.msgpack, the reference's teacher flags
                (--randomize_start --randomize_base_mass --randomize_base_com
                --push_robots) and the full TscAlgoCfg for 3 iterations
@@ -105,7 +134,7 @@ Phases (any failure exits nonzero and prints no result line):
                priv_reg_counter 4, std >= min_std, the slim checkpoint read
                back by params_from_jax_tsc to equal tensors; then one more
                iteration under torch.profiler.
- 13. vision parity — one depth-student iteration of 64 envs on 8 courses
+ 15. vision parity — one depth-student iteration of 64 envs on 8 courses
                (T = 8: camera chunks of 5 and 3, the teacher model_12000 and
                the frozen bbc_final, command noise off) on the card against
                the CPU, from one state, the same student weights and draws:
@@ -114,7 +143,7 @@ Phases (any failure exits nonzero and prints no result line):
                identical inputs the encoder's outputs, the four losses and
                every parameter after the update (phase_vision_parity states
                the tolerances).
- 14. vision train — cli/train_tsc --use_camera at camera_num_envs = 256
+ 16. vision train — cli/train_tsc --use_camera at camera_num_envs = 256
                envs on 64 courses, the full VisionCfg (T = 24, six BYOL
                minibatches) and the 87 x 58 camera with 32 march samples,
                the teacher logs/agility/r5/model_12000.msgpack resolved
@@ -126,7 +155,7 @@ Phases (any failure exits nonzero and prints no result line):
                every parameter and metric finite, vision_3.msgpack read back
                by params_from_jax_vision to equal tensors; then one more
                iteration under torch.profiler.
- 15. vision play — cli/play_tsc --use_camera at 256 envs on 64 courses
+ 17. vision play — cli/play_tsc --use_camera at 256 envs on 64 courses
                with that checkpoint, the teacher's estimator and the frozen
                BBC for 50 control steps: K1 launches = 4 x (steps + 1), K2 =
                K3 = steps + 1, every state finite, median base height over
@@ -154,6 +183,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "logs", "bbc_r5", "bbc_15k.msgpack")
 TSC_CHECKPOINT = os.path.join(ROOT, "logs", "agility", "r5", "model_12000.msgpack")
 TSC_BBC = os.path.join(ROOT, "logs", "bbc_r5", "bbc_final.msgpack")
+GAIT_BANDS = os.path.join(ROOT, "agility_tpu_torch", "assets", "gait_bands_real.json")
+JAX_GAIT_REPORT = os.path.join(ROOT, "logs", "bbc_r5", "gait_report_28k.txt")
 KERNELS = ("contact_lcp", "terrain_window", "scandots")   # csrc/<name>.cu
 K1_RTOL = 1e-4
 NUM_ENVS = 4096     # the BBC path's width
@@ -658,10 +689,11 @@ def phase_slice(num_envs, steps):
 
     args = play_bbc.get_args(["--device", "cuda", "--num_envs", str(num_envs),
                               "--checkpoint", CHECKPOINT, "--mode", "trot", "--vx", "1.0",
-                              "--steps", str(steps)])
+                              "--steps", str(steps), "--gait_bands", GAIT_BANDS])
     _counts_zero()
     res = play_bbc.run(args)
     launches = _counts()
+    gait_reading(res, num_envs, steps)
     s = res["state"]
     finite = all(bool(torch.isfinite(t).all()) for t in (*s.sim, s.obs_buf))
     pos = s.sim.base_pos
@@ -686,16 +718,64 @@ def phase_slice(num_envs, steps):
     return launches
 
 
-def phase_tsc_slice(num_envs, steps):
+def gait_reading(res, num_envs, steps):
+    """The BBC slice's gait report (play_bbc printed it) beside the JAX
+    package's trot line; fails unless the stats are finite and physical.
+    The verdict is printed, not gated."""
+    stats, bands, verdict = res["gait"]
+    dt = res["env"].dt
+    duty, hz, sync = np.asarray(stats["duty"]), np.asarray(stats["stride_hz"]), stats["diag_sync"]
+    with open(JAX_GAIT_REPORT) as f:
+        blocks = f.read().split("=== mode ")
+    jax_trot = next(b for b in blocks if b.startswith("trot")).strip().splitlines()
+    print(f"BBC slice gait: trot, vx 1.0, bbc_15k, {num_envs} envs x {steps} steps, the first "
+          f"100 skipped: duty FL/FR/RL/RR {np.array2string(duty, precision=4)} (mean "
+          f"{duty.mean():.4f}), stride_hz {np.array2string(hz, precision=4)} (mean "
+          f"{hz.mean():.4f}), diag_sync {sync:.4f}; against the real-clip bands {bands}: "
+          f"{'PASS' if verdict['ok'] else 'FAIL'} {verdict} (a reading, not a gate). The JAX "
+          f"package's report (logs/bbc_r5/gait_report_28k.txt: another checkpoint, 8 envs, 300 "
+          f"steps on a CPU; not comparable): " + " | ".join(jax_trot), flush=True)
+    physical = (np.isfinite(duty).all() and np.isfinite(hz).all() and np.isfinite(sync)
+                and ((0 <= duty) & (duty <= 1)).all() and 0 <= sync <= 1
+                and ((0 <= hz) & (hz <= 1 / (2 * dt))).all())
+    if not physical:
+        raise SystemExit("BBC slice: a gait statistic is not finite or outside its physical "
+                         "range")
+
+
+def link_teacher(root):
+    """<root>/agility/r5/model_12000.msgpack, a link to the TSC teacher (so
+    that nothing is written under logs/); returns the link."""
+    run = os.path.join(root, "agility", "r5")
+    os.makedirs(run, exist_ok=True)
+    link = os.path.join(run, os.path.basename(TSC_CHECKPOINT))
+    if not os.path.lexists(link):
+        os.symlink(TSC_CHECKPOINT, link)
+    return link
+
+
+def phase_tsc_slice(num_envs, steps, root):
     from agility_tpu_torch.cli import play_tsc
+    from agility_tpu_torch.io import checkpoint as ckpt
     from agility_tpu_torch.physics import heightfield as hf
 
+    link = link_teacher(root)
     args = play_tsc.get_args(["--device", "cuda", "--num_envs", str(num_envs), "--courses",
-                              "64", "--steps", str(steps), "--checkpoint", TSC_CHECKPOINT,
-                              "--bbc_path", TSC_BBC])
+                              "64", "--steps", str(steps), "--log_root", root, "--proj_name",
+                              "agility", "--exptid", "r5", "--bbc_path", TSC_BBC])
     _counts_zero()
     res = play_tsc.run(args)
     launches = _counts()
+    resolved = ckpt.latest(play_tsc.run_dir(args))
+    want_sd = ckpt.params_from_jax_tsc(ckpt.read_msgpack(TSC_CHECKPOINT))
+    by_name = resolved == link and all(
+        torch.equal(v.cpu(), want_sd[name][k]) for name, mod in (
+            ("actor_critic", res["policy"].ac), ("estimator", res["policy"].est))
+        for k, v in mod.state_dict().items())
+    print(f"TSC slice: teacher resolved through --log_root/--proj_name/--exptid to {resolved}, "
+          f"weights equal {os.path.basename(TSC_CHECKPOINT)}'s {by_name}", flush=True)
+    if not by_name:
+        raise SystemExit("TSC slice: the teacher resolved by name is not model_12000")
     env, s = res["env"], res["state"]
     finite = all(bool(torch.isfinite(t).all())
                  for t in (*s.sim, s.obs_buf, s.obs_bbc_buf, s.seesaw_theta))
@@ -1036,6 +1116,138 @@ def phase_train(num_envs, iters):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_bbc_mocap(num_envs, root):
+    """Clip files in the reference's layout under `root`, load_dir on the
+    card against the CPU, then cli/train_bbc --mocap_dir at full width for
+    one iteration; returns the kernels' launches in training."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_cases import write_clip_dir
+
+    from agility_tpu_torch.cli import train_bbc
+    from agility_tpu_torch.envs import mocap
+    from agility_tpu_torch.envs.config import MOCAP_CATEGORIES
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.learn.policy import build_policy
+    from agility_tpu_torch.learn.ssinfogail import metrics_to_host
+
+    clips = os.path.join(root, "mocap")
+    t0 = time.perf_counter()
+    written = write_clip_dir(clips)
+    t_write = time.perf_counter() - t0
+    dirs = (os.path.join(clips, "mocap_all_lb"), os.path.join(clips, "mocap_all_ulb"))
+    card, host = (mocap.load_dir(*dirs, MOCAP_CATEGORIES, d) for d in ("cuda", "cpu"))
+    same = card.ulb_dur == host.ulb_dur and all(
+        torch.equal(getattr(card, k).cpu(), v) for k, v in host._asdict().items()
+        if isinstance(v, torch.Tensor))
+    lb = [n for _, n in written["lb"]]
+    n_ulb = sum(n for _, n in written["ulb"])
+    print(f"BBC mocap: {len(lb)} labelled clips of {lb} frames at frame durations "
+          f"{sorted(set(host.clip_dur.tolist()))} s and {len(written['ulb'])} unlabelled files of "
+          f"{n_ulb} frames (ulb_dur {host.ulb_dur:.4f} s) written in {t_write:.2f} s; load_dir "
+          f"on the card bit-equal to the CPU's {same}", flush=True)
+    if not same:
+        raise SystemExit("BBC mocap: load_dir on the card differs from the CPU's")
+
+    args = train_bbc.get_args(["--task", "go2_locomotion", "--num_envs", str(num_envs),
+                               "--max_iterations", "1", "--device", "cuda", "--log_root",
+                               os.path.join(root, "runs"), "--log_every", "1", "--mocap_dir",
+                               clips])
+    t0 = time.perf_counter()
+    runner = train_bbc.build(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    _counts_zero()
+    t0 = time.perf_counter()
+    train_bbc.train(runner, args)
+    torch.cuda.synchronize()
+    t_iter = time.perf_counter() - t0
+    launches = _counts()
+    alg, ts, m = runner.alg, runner.train_state, runner.env.motion
+    # the preload again, alone: both expert tables from the loaded clips
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alg._preload(True)
+    alg._preload(False)
+    torch.cuda.synchronize()
+    t_preload = time.perf_counter() - t0
+    counts = m.clip_frames.tolist() == lb and m.ulb_frames.shape[0] == n_ulb
+    modes = torch.bincount(alg.expert_labels, minlength=len(MOCAP_CATEGORIES)).tolist()
+    metrics = metrics_to_host(runner.last_metrics)
+    finite = all(bool(torch.isfinite(p).all()) for k in ("ac", "est", "disc")
+                 for p in getattr(ts, k).parameters()) and all(map(np.isfinite, metrics.values()))
+    path = ckpt.latest(runner.log_dir)
+    policy = build_policy(runner.env.cfg, ckpt.params_from_jax(ckpt.read_msgpack(path)), "cuda")
+    back = all(torch.equal(a, b) for mine, got in ((ts.ac, policy.ac), (ts.est, policy.est))
+               for a, b in zip(mine.state_dict().values(), got.state_dict().values()))
+    T = runner.cfg.num_steps_per_env
+    print(f"BBC mocap: train_bbc --mocap_dir, {num_envs} envs x {T} steps x 1 iteration: build "
+          f"(env, clips, trainer, preload) {t_build:.2f} s, the iteration (DAgger, save "
+          f"included) {t_iter:.2f} s, {T * num_envs / t_iter:.1f} env-steps/s; the preload "
+          f"alone ({alg.cfg.num_preload_transitions} labelled + as many unlabelled transitions) "
+          f"{t_preload:.3f} s; launches {launches}; motion tables' clip and frame counts equal "
+          f"the files' {counts}; expert labels per mode {modes}; metrics {json.dumps(metrics)}; "
+          f"checkpoint {os.path.basename(path)} read back equal {back}; on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    want = dict(contact_lcp=runner.env.engine_cfg.decimation * T, terrain_window=T, scandots=0)
+    if launches != want:
+        raise SystemExit(f"BBC mocap: launches {launches}, want {want}")
+    if not (finite and counts and min(modes) > 0 and back):
+        raise SystemExit("BBC mocap: non-finite parameters or metrics, tables unlike the "
+                         "files, a mode missing from the expert labels, or the checkpoint "
+                         "not read back equal")
+    return launches
+
+
+def _keystr_leaves(tree, prefix=""):
+    """(jax.tree_util.keystr path, array) of a nested dict's leaves, keys sorted."""
+    for k in sorted(tree):
+        path = f"{prefix}[{k!r}]"
+        if isinstance(tree[k], dict):
+            yield from _keystr_leaves(tree[k], path)
+        else:
+            yield path, np.asarray(tree[k])
+
+
+def phase_export(root, bbc):
+    """io/export on the BBC inference policy (bbc_final) at the BBC path's
+    width, on `bbc`'s (env, ...) initial observations: the exported program
+    loaded back against the eager policy, and the parameter dump against
+    params_to_jax's tree."""
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.io import export
+    from agility_tpu_torch.learn.policy import build_policy
+
+    env = bbc[0]
+    sd = ckpt.params_from_jax(ckpt.read_msgpack(TSC_BBC))
+    policy = build_policy(env.cfg, sd, "cuda")
+    obs = env.init_state().obs_buf
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = export.export_policy(policy, (obs,), os.path.join(root, "bbc_final"))
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = export.load_policy(path)
+    t_load = time.perf_counter() - t0
+    got, want = loaded(obs), policy(obs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tree = ckpt.params_to_jax(policy.ac.state_dict(), policy.est.state_dict(),
+                              sd["discriminator"])
+    npz = np.load(export.export_params_npz(tree, os.path.join(root, "bbc_final")))
+    leaves = dict(_keystr_leaves(tree))
+    keys = list(npz.files) == list(leaves) and all(np.array_equal(npz[k], v)
+                                                  for k, v in leaves.items())
+    print(f"export: bbc_final's inference policy at {tuple(obs.shape)} obs on the card, "
+          f"torch.export {t_export:.2f} s to {os.path.basename(path)} "
+          f"({os.path.getsize(path)} bytes), load {t_load:.2f} s; loaded vs eager actions max abs "
+          f"err {err:.3e} (tol 1e-6), finite {bool(torch.isfinite(got).all())}; params npz "
+          f"{len(npz.files)} keys equal params_to_jax's tree key for key {keys}", flush=True)
+    if not (err <= 1e-6 and bool(torch.isfinite(got).all()) and got.shape == want.shape):
+        raise SystemExit("export: the loaded program's actions differ from the eager policy's")
+    if not keys:
+        raise SystemExit("export: the params npz differs from params_to_jax's tree")
+
+
 def phase_tsc_train(num_envs, iters):
     """cli/train_tsc at full width (64 courses, the reference's teacher
     flags, the frozen bbc_final) for `iters` iterations; returns the
@@ -1218,9 +1430,7 @@ def phase_vision_train(root, iters):
     from agility_tpu_torch.io import checkpoint as ckpt
     from agility_tpu_torch.learn.ssinfogail import metrics_to_host
 
-    os.makedirs(os.path.join(root, "agility", "r5"))
-    os.symlink(TSC_CHECKPOINT, os.path.join(root, "agility", "r5",
-                                            os.path.basename(TSC_CHECKPOINT)))
+    link_teacher(root)
     label = "TSC vision train"
     runner, launches, it_ms, its, peak = timed_training(
         label, train_tsc,
@@ -1388,7 +1598,7 @@ def main():
 
     rows, t = {}, time.perf_counter()
     bbc = bbc_case()
-    vis_root = _log_root()
+    tmp_root = _log_root()
     try:
         for name, phase in (
                 ("K1", lambda: phase_k1([("bbc", *bbc), ("tsc", *tsc_case()),
@@ -1396,22 +1606,25 @@ def main():
                 ("K2", lambda: phase_k2(bbc)), ("K3", phase_k3),
                 ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
                 ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
-                ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS)),
+                ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS, tmp_root)),
                 ("train parity", phase_train_parity),
                 ("BBC train", lambda: phase_train(NUM_ENVS, TRAIN_ITERS)),
+                ("BBC mocap", lambda: phase_bbc_mocap(NUM_ENVS, tmp_root)),
+                ("export", lambda: phase_export(tmp_root, bbc)),
                 ("TSC train parity", phase_tsc_train_parity),
                 ("TSC train", lambda: phase_tsc_train(TSC_ENVS, TRAIN_ITERS)),
                 ("vision parity", phase_vision_parity),
-                ("vision train", lambda: phase_vision_train(vis_root, TRAIN_ITERS)),
+                ("vision train", lambda: phase_vision_train(tmp_root, TRAIN_ITERS)),
                 ("vision play", lambda: phase_vision_play(VISION_ENVS, VISION_STEPS,
                                                           rows["vision train"][1]))):
             rows[name] = phase()
             print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
     finally:
-        shutil.rmtree(vis_root, ignore_errors=True)
+        shutil.rmtree(tmp_root, ignore_errors=True)
 
     paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"],
-                 bbc_train=rows["BBC train"], tsc_train=rows["TSC train"],
+                 bbc_train=rows["BBC train"], bbc_mocap_train=rows["BBC mocap"],
+                 tsc_train=rows["TSC train"],
                  tsc_vision_train=rows["vision train"][0], tsc_vision_play=rows["vision play"])
     keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share")
     kernels = []

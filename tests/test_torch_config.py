@@ -183,6 +183,7 @@ def test_public_device_defaults_are_cuda():
                  "learn.policy_tsc.build_tsc_policy", "physics.heightfield.from_numpy",
                  "physics.constants.ModelConsts.from_model",
                  "envs.go2_locomotion.state_from_jax", "envs.go2_agility.state_from_jax",
-                 "envs.mocap.synthetic", "learn.networks.RunningNormalizer.__init__",
+                 "envs.mocap.synthetic", "envs.mocap.load_dir",
+                 "learn.networks.RunningNormalizer.__init__",
                  "learn.replay.Ring.__init__", "render.raycast.make_camera"):
         assert f"agility_tpu_torch.{want}" in found, want

@@ -240,3 +240,23 @@ def test_vision_iteration_on_card(card):
     assert all(bool(torch.isfinite(p).all()) for mod in (ts.enc, ts.actor, ts.byol)
                for p in mod.parameters())
     assert not torch.equal(ts.enc.backbone.fc0.weight, enc0)
+
+
+@pytest.mark.cuda
+def test_mocap_load_dir_on_card_matches_cpu(card, tmp_path):
+    """envs/mocap.load_dir onto the card gives the tables it gives on the
+    CPU, bit for bit, from clip files in the reference's layout
+    (torch_cases.write_clip_dir: two clips a mode at two frame durations,
+    two unlabelled files)."""
+    from agility_tpu_torch.envs import mocap
+    from agility_tpu_torch.envs.config import MOCAP_CATEGORIES
+    from torch_cases import write_clip_dir
+
+    write_clip_dir(str(tmp_path))
+    dirs = (str(tmp_path / "mocap_all_lb"), str(tmp_path / "mocap_all_ulb"))
+    gpu = mocap.load_dir(*dirs, MOCAP_CATEGORIES, "cuda")
+    cpu = mocap.load_dir(*dirs, MOCAP_CATEGORIES, "cpu")
+    assert gpu.frames.is_cuda and gpu.ulb_dur == cpu.ulb_dur
+    for k, v in cpu._asdict().items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(getattr(gpu, k).cpu(), v), k

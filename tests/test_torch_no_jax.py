@@ -9,7 +9,10 @@ on 2 courses through cli/train_tsc (full TscAlgoCfg), then resumes from
 the checkpoints it wrote for one more; a fifth trains the depth student for
 one iteration of 4 envs on 2 courses through cli/train_tsc --use_camera
 (full VisionCfg) and plays it for a few steps through cli/play_tsc
---use_camera from the checkpoint it wrote."""
+--use_camera from the checkpoint it wrote; a sixth plays the BBC through
+cli/play_bbc --compare_gait; a seventh trains the BBC for one iteration
+of 4 envs through cli/train_bbc --mocap_dir on clip files written in the
+reference's layout."""
 import os
 import subprocess
 import sys
@@ -144,6 +147,50 @@ VISION_SCRIPT = textwrap.dedent("""
 """)
 
 
+GAIT_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
+    import torch
+    from agility_tpu_torch.cli import play_bbc
+    torch.set_num_threads(1)
+    res = play_bbc.run(play_bbc.get_args([
+        "--device", "cpu", "--num_envs", "2", "--steps", "5", "--mode", "trot",
+        "--checkpoint", "logs/bbc_r5/bbc_final.msgpack", "--compare_gait"]))
+    stats, bands, verdict = res["gait"]
+    assert set(bands) == {"duty", "stride_hz", "diag_sync"} and set(verdict) == {*bands, "ok"}
+    assert res["traj"]["contact"].shape == (5, 2, 4)
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
+                                                                  "agility_tpu."))
+                   for k, v in sys.modules.items() if v is not None)
+    print("ok")
+""")
+
+
+MOCAP_TRAIN_SCRIPT = textwrap.dedent("""
+    import sys, tempfile
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
+    sys.path.insert(0, "tests")
+    import torch
+    from agility_tpu_torch.cli import train_bbc
+    from torch_cases import write_clip_dir
+    torch.set_num_threads(1)   # small ops: one thread is faster and spares the suite's cores
+    with tempfile.TemporaryDirectory() as d:
+        written = write_clip_dir(d)
+        r = train_bbc.run(train_bbc.get_args([
+            "--device", "cpu", "--task", "go2_locomotion_smoke", "--num_envs", "4",
+            "--max_iterations", "1", "--mocap_dir", d, "--log_root", d]))
+        assert r.current_iteration == 1
+        assert r.env.motion.clip_frames.tolist() == [n for _, n in written["lb"]]
+        assert all(bool(torch.isfinite(p).all()) for p in r.train_state.disc.parameters())
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
+                                                                  "agility_tpu."))
+                   for k, v in sys.modules.items() if v is not None)
+    print("ok")
+""")
+
+
 def _run(script):
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")]))}
@@ -171,3 +218,11 @@ def test_tsc_train_without_jax():
 
 def test_vision_train_and_play_without_jax():
     _run(VISION_SCRIPT)
+
+
+def test_bbc_play_compare_gait_without_jax():
+    _run(GAIT_SCRIPT)
+
+
+def test_bbc_train_mocap_dir_without_jax():
+    _run(MOCAP_TRAIN_SCRIPT)

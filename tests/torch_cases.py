@@ -127,3 +127,74 @@ def window_case(n, W, seed=0, device="cpu", k=132):
     px = c[:, 0:1] + rng.uniform(-0.9, 0.9, (n, k))
     py = c[:, 1:2] + rng.uniform(-0.9, 0.9, (n, k))
     return grid, f32(c), f32(rng.uniform(-0.3, 0.3, (n, 3))), f32(px), f32(py)
+
+
+def _to_pybullet(frames, rng):
+    """Frames (T, 49) in the port's layout, taken back to the reference's
+    file layout: 61 columns (the last 12 unread), PyBullet leg order [FR,
+    FL, RR, RL] with the hips' signs flipped, each leg's toes and the root
+    lifted off the ground, and the root quaternion tilted, scaled off unit
+    length and negated on every third frame: `mocap._reorder_pb_to_fk`
+    undoes all but the tilt."""
+    from agility_tpu_torch.envs import mocap
+
+    T = len(frames)
+    swap = lambda b: np.hstack([b[:, 3:6], b[:, 0:3], b[:, 9:12], b[:, 6:9]])
+    out = np.concatenate([frames, rng.normal(size=(T, 12))], -1)
+    for sl in (mocap.JOINT_POS, mocap.JOINT_VEL):
+        b = frames[:, sl].copy()
+        b[:, [0, 3, 6, 9]] *= -1.0
+        out[:, sl] = swap(b)
+    lift = rng.uniform(0.01, 0.05, 4)
+    toes = frames[:, mocap.TOE_POS].reshape(T, 4, 3).copy()
+    toes[:, :, 2] += lift
+    out[:, mocap.TOE_POS] = swap(toes.reshape(T, 12))
+    out[:, 2] += lift.mean()
+    t = np.arange(T)
+    q = np.stack([0.05 * np.sin(0.3 * t), 0.03 * np.cos(0.2 * t), 0.2 * np.sin(0.1 * t),
+                  np.ones(T)], -1)
+    out[:, mocap.ROOT_ROT] = (q * rng.uniform(0.9, 1.1, (T, 1))
+                              * np.where(t % 3 == 0, -1.0, 1.0)[:, None])
+    return out
+
+
+def write_clip_dir(root, seed=0, categories=None, ulb=True):
+    """A small mocap dataset in the reference's layout under `root`:
+    mocap_all_lb/<mode>_<v>.txt, two clips of every mode (v = 0: 72 frames
+    of 1/30 s, v = 1: 90 frames of 1/60 s, unequal motion weights), and,
+    with `ulb`, mocap_all_ulb/ulb_0.txt and ulb_1.txt (60 frames of 1/40 s,
+    50 of 1/50 s).  Each file is JSON {FrameDuration, MotionWeight,
+    Frames[(n, 61)]} of mocap.synthetic's clips in PyBullet order.
+    Returns {"lb": [(file name, frames)], "ulb": [...]} in file order."""
+    import json
+    import os
+
+    from agility_tpu_torch.envs import mocap
+    from agility_tpu_torch.envs.config import MOCAP_CATEGORIES
+
+    categories = categories or MOCAP_CATEGORIES
+    rng = np.random.default_rng(seed)
+    model = build_go2_model()
+    written = {"lb": [], "ulb": []}
+
+    def write(kind, name, frames, dur, weight):
+        sub = os.path.join(root, f"mocap_all_{kind}")
+        os.makedirs(sub, exist_ok=True)
+        with open(os.path.join(sub, name), "w") as f:
+            json.dump({"LoopMode": "Wrap", "FrameDuration": dur, "MotionWeight": weight,
+                       "Frames": _to_pybullet(frames, rng).tolist()}, f)
+        written[kind].append((name, len(frames)))
+
+    def clips(n, dur, s, cats):
+        m = mocap.synthetic(model, cats, n_frames=n, frame_dur=dur, clips_per_cat=1,
+                            seed=seed + s, device="cpu")
+        f = m.frames.double().numpy()
+        return [f[a:a + b] for a, b in zip(m.clip_start.tolist(), m.clip_frames.tolist())]
+
+    for v, (n, dur) in enumerate(((72, 1 / 30.0), (90, 1 / 60.0))):
+        for k, (cat, frames) in enumerate(zip(categories, clips(n, dur, v, categories))):
+            write("lb", f"{cat}_{v}.txt", frames, dur, 1.0 + 0.5 * v + 0.25 * k)
+    if ulb:
+        for i, (n, dur) in enumerate(((60, 1 / 40.0), (50, 1 / 50.0))):
+            write("ulb", f"ulb_{i}.txt", clips(n, dur, 2 + i, ("trot",))[0], dur, 1.0)
+    return {k: sorted(v) for k, v in written.items()}
