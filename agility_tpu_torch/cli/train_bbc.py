@@ -2,15 +2,21 @@
 
     python -m agility_tpu_torch.cli.train_bbc --task go2_locomotion --num_envs 4096 \
         --max_iterations 1500 [--resume] [--device cuda] [--mocap_dir D]
+    torchrun --standalone --nproc_per_node 4 -m agility_tpu_torch.cli.train_bbc \
+        --task go2_locomotion_32k --shard
 
 Checkpoints land in <log_root>/<experiment>/<experiment_idx>/ (see
 learn/runner.py).  With --mocap_dir the env's reset poses and the
 discriminator's expert transitions come from the clips under
 D/mocap_all_lb (labelled, the category in each file name) and
 D/mocap_all_ulb (unlabelled, optional), read by envs/mocap.load_dir;
-without it, from the synthetic gait clips.  The JAX package's --multihost
-and --shard (a device mesh) are not ported.  TF32 is off for matrix
-products and convolutions.
+without it, from the synthetic gait clips.  --shard splits the
+--num_envs global envs over the ranks of the group torchrun starts (one
+per card, cuda:LOCAL_RANK, NCCL; gloo with --device cpu; one rank without
+torchrun) with the parameters replicated: the run is the one-rank run of
+its seed, partitioned by env (dist/mesh.py).  --multihost is --shard over
+torchrun's multi-node rendezvous.  TF32 is off for matrix products and
+convolutions.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import os
 import torch
 
 from agility_tpu_torch.cli import registry
+from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.learn.runner import OnPolicyRunner
@@ -45,6 +52,12 @@ def get_args(argv=None):
                         "mocap_all_ulb/); synthetic gaits if omitted")
     p.add_argument("--log_root", default="logs")
     p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's multi-node group (one process per card on "
+                        "every host); implies --shard")
+    p.add_argument("--shard", action="store_true",
+                   help="split the global --num_envs over the group's ranks, one per "
+                        "card (replicated parameters, data parallel)")
     for flag in DR_FLAGS:
         p.add_argument(f"--no_{flag}", action="store_true", help=f"disable domain_rand.{flag}")
     p.add_argument("--override", action="append", default=[], metavar="KEY=VALUE",
@@ -76,7 +89,10 @@ def build(args) -> OnPolicyRunner:
 
     log_dir = os.path.join(args.log_root, args.experiment_name or args.task,
                            str(args.experiment_idx))
-    env = Go2LocomotionEnv(cfg, device, seed=args.seed)
+    shard = None
+    if args.shard or args.multihost:
+        shard, device = mesh.join(device, cfg.env.num_envs, args.multihost)
+    env = Go2LocomotionEnv(cfg, device, seed=args.seed, shard=shard)
     runner = OnPolicyRunner(env, make_algo_cfg(), log_dir=log_dir, seed=args.seed)
     if args.resume or args.checkpoint:
         path = args.checkpoint or ckpt.latest(log_dir)
@@ -99,7 +115,10 @@ def run(args) -> OnPolicyRunner:
 
 
 def main(argv=None):
-    run(get_args(argv))
+    try:
+        run(get_args(argv))
+    finally:
+        mesh.close()
 
 
 if __name__ == "__main__":

@@ -4,6 +4,8 @@ Teacher phase:
     python -m agility_tpu_torch.cli.train_tsc --bbc_path logs/bbc_r5/bbc_final.msgpack \\
         --randomize_start --randomize_base_mass --randomize_base_com --push_robots \\
         [--num_envs 6144] [--max_iterations 30000] [--resumeid 000] [--device cuda]
+    torchrun --standalone --nproc_per_node 4 -m agility_tpu_torch.cli.train_tsc \\
+        --task go2_32k --shard --bbc_path logs/bbc_r5/bbc_final.msgpack
 Student phase (depth distillation, learn/vision_tsc.py):
     python -m agility_tpu_torch.cli.train_tsc --use_camera \\
         --bbc_path logs/bbc_r5/bbc_final.msgpack --log_root logs --proj_name agility \\
@@ -16,9 +18,12 @@ the newest model_*.msgpack of <resumeid or exptid> (a JAX-written one
 included), runs `depth.camera_num_envs` (256) envs unless --num_envs or
 --debug says otherwise, starts the env state from seed + 1, and writes
 vision_<step>.msgpack every 100 iterations and at the end.  `--debug`
-trains 64 envs on 8 courses.  The JAX package's --multihost and --shard (a
-device mesh) are not ported.  TF32 is off for matrix products and
-convolutions.
+trains 64 envs on 8 courses.  --task names the registry's TSC config
+(go2, or go2_32k: 32768 envs on 256 courses).  --shard / --multihost split
+the teacher's global envs over the ranks as in cli/train_bbc; the student
+is not sharded (in the JAX package too the mesh reaches the teacher only)
+and refuses a group of more than one rank.  TF32 is off for matrix products
+and convolutions.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import os
 import torch
 
 from agility_tpu_torch.cli import registry
+from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
 from agility_tpu_torch.envs.tsc_config import tsc_smoke_cfg
 from agility_tpu_torch.io import checkpoint as ckpt
@@ -39,6 +45,7 @@ DR_FLAGS = ("randomize_base_mass", "randomize_base_com", "push_robots")
 
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="Train the TSC agility policy")
+    p.add_argument("--task", default="go2", help="registry task: go2 or go2_32k")
     p.add_argument("--proj_name", default="agility")
     p.add_argument("--exptid", default="000")
     p.add_argument("--resumeid", default=None)
@@ -62,6 +69,12 @@ def get_args(argv=None):
     p.add_argument("--log_root", default="logs")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--debug", action="store_true", help="64 envs, 8 courses")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's multi-node group (one process per card on "
+                        "every host); implies --shard")
+    p.add_argument("--shard", action="store_true",
+                   help="split the teacher's global --num_envs over the group's ranks, one "
+                        "per card (replicated parameters, data parallel)")
     return p.parse_args(argv)
 
 
@@ -73,7 +86,7 @@ def build(args):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_tsc: --device cuda but torch sees no CUDA device")
-    make_env_cfg, make_algo_cfg = registry.get("go2")
+    make_env_cfg, make_algo_cfg = registry.get(args.task)
     if args.debug:
         cfg = tsc_smoke_cfg(num_envs=64, courses=8)
     else:
@@ -92,7 +105,14 @@ def build(args):
     cfg = registry.apply_overrides(cfg, **overrides)
 
     log_dir = os.path.join(args.log_root, args.proj_name, args.exptid)
-    env = Go2AgilityEnv(cfg, device, seed=args.seed)
+    shard = None
+    if args.use_camera:
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise SystemExit("train_tsc --use_camera: the student is not sharded; run it as "
+                             "one process, not under a group of several ranks")
+    elif args.shard or args.multihost:
+        shard, device = mesh.join(device, cfg.env.num_envs, args.multihost)
+    env = Go2AgilityEnv(cfg, device, seed=args.seed, shard=shard)
     runner = TscOnPolicyRunner(env, ckpt.load_bbc_frozen(args.bbc_path, seed=args.seed),
                                make_algo_cfg(), log_dir=None if args.use_camera else log_dir,
                                seed=args.seed)
@@ -135,7 +155,10 @@ def run(args):
 
 
 def main(argv=None):
-    run(get_args(argv))
+    try:
+        run(get_args(argv))
+    finally:
+        mesh.close()
 
 
 if __name__ == "__main__":

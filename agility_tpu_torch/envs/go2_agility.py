@@ -33,6 +33,7 @@ import torch
 
 from agility_tpu_torch.core import quat as qm
 from agility_tpu_torch.core.urdf import build_go2_model
+from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_locomotion import compute_disc_features
 from agility_tpu_torch.envs.tsc_config import Go2AgilityCfg
 from agility_tpu_torch.kernels.scandots import scandots
@@ -142,14 +143,22 @@ def state_from_jax(js, device="cuda") -> AgilityState:
 class Go2AgilityEnv:
     """Static course and env data on `device` + step/reset functions."""
 
-    def __init__(self, cfg: Go2AgilityCfg, device="cuda", seed: int = 0):
+    def __init__(self, cfg: Go2AgilityCfg, device="cuda", seed: int = 0,
+                 shard: Optional[mesh.EnvShard] = None):
+        """`shard`: this rank's block of the cfg.env.num_envs global envs
+        (dist/mesh.py); the env then holds and steps those envs alone, every
+        per-env draw and per-env constant is the one-rank env's with the
+        rank's rows taken, and the success EMAs are summed over all ranks'
+        envs every step."""
         self.cfg = cfg
         self.device = dev = torch.device(device)
         self.gen = torch.Generator(device=dev).manual_seed(seed)
         self.model = build_go2_model()
         self.mc = ModelConsts.from_model(self.model, dev)
         self.dt = cfg.dt
-        self.num_envs = N = cfg.env.num_envs
+        self.shard = shard
+        self.num_envs_global = N = cfg.env.num_envs
+        self.num_envs = shard.local if shard else N
         self.dim_c = len(cfg.env.mocap_category_all)
         # discrete-head index -> global mode index
         self.mocap_indices = torch.tensor(
@@ -159,8 +168,11 @@ class Go2AgilityEnv:
             dt=cfg.sim.dt, decimation=cfg.control.decimation,
             jacobi_iters=cfg.sim.jacobi_iters, jacobi_relax=cfg.sim.jacobi_relax,
             warm_start=cfg.sim.warm_start, patch_size=32)   # 1.6 m at the 0.05 m course scale
-        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-        i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=dev)
+        # per-env constants: drawn for all N global envs, the rank's rows kept
+        rows = (lambda x: shard.take(np.asarray(x))) if shard else np.asarray
+        f32 = lambda x: torch.as_tensor(rows(x).astype(np.float32), device=dev)
+        i64 = lambda x: torch.as_tensor(rows(x).astype(np.int64), device=dev)
+        f32s = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # not per env
 
         # ---- obstacle course world ----
         world = obst_gen.generate(cfg.obstacle, seed=cfg.seed)
@@ -198,7 +210,7 @@ class Go2AgilityEnv:
                                 + m.match_bodies("thigh"))
         hip = np.ones(12)
         hip[[0, 3, 6, 9]] = cfg.control.hip_scale_reduction
-        self.hip_scale = f32(hip)
+        self.hip_scale = f32s(hip)
 
         # ---- domain randomization ----
         dr = cfg.domain_rand
@@ -219,8 +231,8 @@ class Go2AgilityEnv:
             friction=f32(friction), kp_scale=f32(kp_scale), kd_scale=f32(kd_scale),
             added_base_mass=f32(added_mass), base_com_shift=f32(com_shift))
         self.mass_params = f32(np.concatenate([added_mass[:, None], com_shift], -1))
-        self.kp = torch.full((N, 12), cfg.control.stiffness, device=dev)
-        self.kd = torch.full((N, 12), cfg.control.damping, device=dev)
+        self.kp = torch.full((self.num_envs, 12), cfg.control.stiffness, device=dev)
+        self.kd = torch.full((self.num_envs, 12), cfg.control.damping, device=dev)
 
         # scandot grid (12 x 11), per env, with optional static horizontal
         # measurement noise (sum of two uniform draws)
@@ -246,15 +258,21 @@ class Go2AgilityEnv:
 
         scales = dataclasses.asdict(cfg.rewards.scales)
         self.reward_names = [k for k, v in scales.items() if v != 0 and k != "termination"]
-        self.reward_scales = f32([scales[k] * self.dt for k in self.reward_names])
+        self.reward_scales = f32s([scales[k] * self.dt for k in self.reward_names])
         self.termination_scale = scales.get("termination", 0.0) * self.dt
         self.n_rew = len(self.reward_names) + (1 if self.termination_scale else 0)
         cr = cfg.commands.ranges
-        self.cmd_ranges = {k: f32(getattr(cr, k)) for k in ("lin_vel_x", "lin_vel_y", "ang_vel_yaw")}
+        self.cmd_ranges = {k: f32s(getattr(cr, k))
+                           for k in ("lin_vel_x", "lin_vel_y", "ang_vel_yaw")}
         self.max_episode_length = cfg.max_episode_length
 
     def _rand(self, *shape):
-        return torch.rand(shape, generator=self.gen, device=self.device)
+        """U[0, 1) draws of `shape`, whose first axis runs over this env's
+        envs: drawn at the global width and the rank's envs taken."""
+        if self.shard is None:
+            return torch.rand(shape, generator=self.gen, device=self.device)
+        full = (self.num_envs_global,) + shape[1:]
+        return self.shard.take(torch.rand(full, generator=self.gen, device=self.device))
 
     def _uniform(self, lo, hi, *shape):
         return lo + (hi - lo) * self._rand(*shape)
@@ -272,8 +290,11 @@ class Go2AgilityEnv:
         dx = self._uniform(-e.rand_x_range, e.rand_x_range, N)
         dy = self._uniform(-e.rand_y_range, e.rand_y_range, N)
         dyaw = self._uniform(-e.rand_yaw_range, e.rand_yaw_range, N)
-        obst_idx = (torch.randint(0, self.obst_types.shape[1], (N,), generator=self.gen,
-                                  device=self.device) if e.randomize_start else None)
+        obst_idx = None
+        if e.randomize_start:
+            obst_idx = torch.randint(0, self.obst_types.shape[1], (self.num_envs_global,),
+                                     generator=self.gen, device=self.device)
+            obst_idx = self.shard.take(obst_idx) if self.shard else obst_idx
         dof_scale = self._uniform(0.5, 1.5, N, 12)
         lin_ang = self._uniform(-0.5, 0.5, N, 6)
         return ResetDraws(dx, dy, dyaw, obst_idx, dof_scale, lin_ang, self._rand(N), self._rand(N))
@@ -477,12 +498,19 @@ class Go2AgilityEnv:
         def ema(old, n, k):
             return torch.where(n > 0, old * 0.98 + 0.02 * (k / torch.clamp(n, min=1)), old)
 
-        n_end = torch.sum(reset_buf)
-        success_rate = ema(state.success_rate, n_end, torch.sum(reach_goal_cutoff & reset_buf))
+        # counts over ending episodes (exact integers in float32), summed
+        # over every rank's envs: the EMAs and the curriculum stay alike
         end_s0 = reset_buf & (state.spawn_goal_idx == 0)
-        success_rate_s0 = ema(state.success_rate_s0, torch.sum(end_s0),
-                              torch.sum(reach_goal_cutoff & end_s0))
+        counts = torch.stack([
+            reset_buf.sum(), (reach_goal_cutoff & reset_buf).sum(), end_s0.sum(),
+            (reach_goal_cutoff & end_s0).sum()]).float()
         prog = torch.sum(torch.where(reset_buf, (cur_goal_idx - state.spawn_goal_idx).float(), 0.0))
+        counts = torch.cat([counts, prog[None]])
+        if self.shard is not None:
+            mesh.all_reduce_(counts)
+        n_end, k_end, n_s0, k_s0, prog = counts
+        success_rate = ema(state.success_rate, n_end, k_end)
+        success_rate_s0 = ema(state.success_rate_s0, n_s0, k_s0)
         goal_progress = ema(state.goal_progress, n_end, prog)
 
         curr_count = state.curr_count

@@ -25,6 +25,7 @@ import torch
 
 from agility_tpu_torch.core import quat as qm
 from agility_tpu_torch.core.urdf import build_go2_model
+from agility_tpu_torch.dist.mesh import EnvShard
 from agility_tpu_torch.envs import mocap as mocap_mod
 from agility_tpu_torch.envs.config import Go2LocomotionCfg
 from agility_tpu_torch.physics import engine as eng
@@ -103,7 +104,12 @@ class Go2LocomotionEnv:
     """Static env data on `device` + step/reset functions."""
 
     def __init__(self, cfg: Go2LocomotionCfg, device="cuda", seed: int = 0,
-                 motion: Optional[mocap_mod.MotionData] = None):
+                 motion: Optional[mocap_mod.MotionData] = None,
+                 shard: Optional[EnvShard] = None):
+        """`shard`: this rank's block of the cfg.env.num_envs global envs
+        (dist/mesh.py); the env then holds and steps those envs alone, and
+        every per-env draw and per-env constant is the one-rank env's, the
+        rank's rows taken."""
         if cfg.env.recovery_init_prob > 0.0:
             raise NotImplementedError("recovery init is not ported (off in the go2 task)")
         self.cfg = cfg
@@ -112,7 +118,9 @@ class Go2LocomotionEnv:
         self.model = build_go2_model()
         self.mc = ModelConsts.from_model(self.model, self.device)
         self.dt = cfg.dt
-        self.num_envs = N = cfg.env.num_envs
+        self.shard = shard
+        self.num_envs_global = N = cfg.env.num_envs
+        self.num_envs = shard.local if shard else N
         self.dim_c = len(cfg.env.mocap_category_all)
         self.num_mocap = len(cfg.env.mocap_category)
         self.single_c_idx = (list(cfg.env.mocap_category_all).index(cfg.env.mocap_category[0])
@@ -122,10 +130,12 @@ class Go2LocomotionEnv:
             jacobi_iters=cfg.sim.jacobi_iters, jacobi_relax=cfg.sim.jacobi_relax,
             warm_start=cfg.sim.warm_start, restitution=cfg.terrain.restitution)
         f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        # per-env constants: drawn for all N global envs, the rank's rows kept
+        f32e = lambda x: f32(shard.take(np.asarray(x)) if shard else x)
 
         td = terrain_gen.generate(cfg.terrain, seed=cfg.seed)
         self.grid = hf.from_numpy(td.height, td.hscale, origin_xy=td.origin, device=self.device)
-        self.env_origins = f32(terrain_gen.assign_env_origins(td, N, cfg.terrain, seed=cfg.seed))
+        self.env_origins = f32e(terrain_gen.assign_env_origins(td, N, cfg.terrain, seed=cfg.seed))
         if motion is not None:
             self.motion = motion
         elif cfg.mocap_dir:
@@ -173,12 +183,13 @@ class Go2LocomotionEnv:
             kd_scale = rng.uniform(*dr.motor_strength_range, (N, 12))
         else:
             kp_scale = kd_scale = np.ones((N, 12))
-        self.params = eng.EnvParams(friction=f32(friction), kp_scale=f32(kp_scale),
-                                    kd_scale=f32(kd_scale), added_base_mass=f32(added_mass),
-                                    base_com_shift=f32(com_shift))
-        self.mass_params = f32(np.concatenate([added_mass[:, None], com_shift], -1))
-        self.kp = torch.full((N, 12), cfg.control.stiffness, device=self.device)
-        self.kd = torch.full((N, 12), cfg.control.damping, device=self.device)
+        self.params = eng.EnvParams(friction=f32e(friction), kp_scale=f32e(kp_scale),
+                                    kd_scale=f32e(kd_scale), added_base_mass=f32e(added_mass),
+                                    base_com_shift=f32e(com_shift))
+        self.mass_params = f32e(np.concatenate([added_mass[:, None], com_shift], -1))
+        n = self.num_envs
+        self.kp = torch.full((n, 12), cfg.control.stiffness, device=self.device)
+        self.kd = torch.full((n, 12), cfg.control.damping, device=self.device)
         hip = np.ones(12)
         hip[self.hip_dofs] = cfg.control.hip_scale_reduction
         self.hip_scale = f32(hip)
@@ -208,8 +219,14 @@ class Go2LocomotionEnv:
         self.push_interval = int(np.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self.max_episode_length = cfg.max_episode_length
 
-    def _rand(self, *shape):
-        return torch.rand(shape, generator=self.gen, device=self.device)
+    def _rand(self, *shape, env_axis: int = 0):
+        """U[0, 1) draws of `shape`, whose `env_axis` runs over this env's
+        envs: drawn at the global width and the rank's envs taken."""
+        if self.shard is None:
+            return torch.rand(shape, generator=self.gen, device=self.device)
+        full = shape[:env_axis] + (self.num_envs_global,) + shape[env_axis + 1:]
+        return self.shard.take(torch.rand(full, generator=self.gen, device=self.device),
+                               env_axis)
 
     # ==================================================================
 
@@ -335,7 +352,7 @@ class Go2LocomotionEnv:
             cat = torch.full((N,), self.single_c_idx, dtype=torch.long, device=self.device)
         else:
             prior = torch.softmax(state.prior_parameters / 0.25, dim=-1)
-            cat = torch.multinomial(prior.expand(N, -1), 1, generator=self.gen)[:, 0]
+            cat = mocap_mod.categorical(self.gen, prior.expand(N, -1), self.shard)
         c_new = torch.nn.functional.one_hot(cat, self.dim_c).to(eps_new.dtype)
         cmd_new = self._sample_commands(c_new)
         m1 = mask[:, None]
@@ -348,7 +365,7 @@ class Go2LocomotionEnv:
         cfg = self.cfg.commands
         N = self.num_envs
         c_idx = torch.argmax(latent_c, dim=-1)
-        u = self._rand(5, N)
+        u = self._rand(5, N, env_axis=1)
         rx, ry, rw = (self.cmd_ranges[k][c_idx] for k in ("lin_vel_x", "lin_vel_y", "ang_vel_yaw"))
         vx = rx[:, 0] + (rx[:, 1] - rx[:, 0]) * u[0]
         vy = ry[:, 0] + (ry[:, 1] - ry[:, 0]) * u[1]
@@ -372,7 +389,8 @@ class Go2LocomotionEnv:
         N = self.num_envs
         latent_eps, latent_c, commands = self._resample_where(state, mask)
         if self.cfg.env.mocap_state_init:
-            frames = self.motion.sample_frames(self.gen, torch.argmax(latent_c, dim=-1), self.dt)
+            frames = self.motion.sample_frames(self.gen, torch.argmax(latent_c, dim=-1), self.dt,
+                                               shard=self.shard)
             dof_pos = frames[:, mocap_mod.JOINT_POS]
             dof_vel = frames[:, mocap_mod.JOINT_VEL]
             base_xy = frames[:, mocap_mod.ROOT_POS][:, :2] + self.env_origins[:, :2]

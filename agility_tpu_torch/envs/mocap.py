@@ -66,6 +66,18 @@ def _reorder_pb_to_fk(frames: np.ndarray) -> np.ndarray:
     return out
 
 
+def categorical(gen: torch.Generator, probs: torch.Tensor, shard=None) -> torch.Tensor:
+    """One draw from each row of `probs` (n, K), as torch.multinomial(probs,
+    1) makes it: argmax(probs / q), q ~ Exp(1) of probs' shape.  With `shard`
+    (an EnvShard, probs its envs' rows) q is drawn for all of its global envs
+    and the rank's rows taken, so every rank's generator stays in step and
+    each env draws what it draws in a one-rank run."""
+    n, k = probs.shape
+    q = torch.empty((shard.num_envs if shard else n, k), device=probs.device)
+    q = q.exponential_(1, generator=gen)
+    return torch.argmax(probs / (shard.take(q) if shard else q), dim=-1)
+
+
 class MotionData(NamedTuple):
     categories: tuple
     frames: torch.Tensor        # (F, 49) on the device
@@ -86,13 +98,17 @@ class MotionData(NamedTuple):
                                 if isinstance(v, torch.Tensor)})
 
     def sample_frames(self, gen: torch.Generator, c_idx: torch.Tensor, dt: float,
-                      disc_obs_len: int = 2) -> torch.Tensor:
+                      disc_obs_len: int = 2, shard=None) -> torch.Tensor:
         """(N, 49) interpolated frames: clip drawn within each env's mode by
-        motion weight, time uniform over the clip."""
+        motion weight, time uniform over the clip.  With `shard` (an
+        EnvShard, c_idx its envs' modes) the draws are the global ones, the
+        rank's envs taken."""
         probs = torch.softmax(self.cat_logits[c_idx], dim=-1)
-        clip = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        clip = categorical(gen, probs, shard)
         lens, durs = self.clip_len[clip], self.clip_dur[clip]
-        u = torch.rand(c_idx.shape[0], generator=gen, device=c_idx.device)
+        u = torch.rand(shard.num_envs if shard else c_idx.shape[0], generator=gen,
+                       device=c_idx.device)
+        u = shard.take(u) if shard else u
         t = torch.clamp((lens - (dt * disc_obs_len + durs)) * u, min=1e-7)
         return self.frames_at(clip, t)
 

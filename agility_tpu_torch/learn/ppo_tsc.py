@@ -34,12 +34,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_agility import AgilityState, Go2AgilityEnv
 from agility_tpu_torch.learn import networks as nets
 from agility_tpu_torch.learn import networks_tsc as tnets
 from agility_tpu_torch.learn.policy_tsc import bbc_act
 from agility_tpu_torch.learn.ssinfogail import (adapt_lr, clip_grad_global_norm_, compute_gae,
-                                                 priv_reg_coef)
+                                                 dagger_minibatches, env_reduce, priv_reg_coef)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +127,8 @@ class TscPPO:
         self.env = env
         self.cfg = cfg
         self.device = dev = env.device
+        # env.shard (dist/mesh.py): this rank's envs of the global batch
+        self.shard = env.shard
         e = env.cfg.env
         self.slices = tnets.TscObsSlices(e.n_proprio, e.n_scan, e.n_priv, e.n_priv_latent,
                                          e.history_len, e.n_auxiliary)
@@ -164,12 +167,15 @@ class TscPPO:
             priv_reg_counter=0)
 
     def draw(self) -> TscDraws:
-        """One iteration's draws from the trainer's generator."""
-        T, N = self.cfg.num_steps_per_env, self.env.num_envs
+        """One iteration's draws from the trainer's generator, at the global
+        N (the rank's envs taken); the permutations run over the global
+        (T x N) rollout."""
+        T, N = self.cfg.num_steps_per_env, self.env.num_envs_global
+        take = (lambda x: self.shard.take(x, 1)) if self.shard else (lambda x: x)
         u = torch.rand((T, N, self.num_d), generator=self.gen, device=self.device)
         gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
         normal = torch.randn((T, N, self.num_c), generator=self.gen, device=self.device)
-        return TscDraws(gumbel, normal, self._perm(T * N), self._perm(T * N))
+        return TscDraws(take(gumbel), take(normal), self._perm(T * N), self._perm(T * N))
 
     def _perm(self, n: int):
         return torch.randperm(n, generator=self.gen, device=self.device)
@@ -190,7 +196,7 @@ class TscPPO:
     def rollout(self, ts: TscTrainState, es: AgilityState, disc_hist, hist_encoding: bool,
                 gumbel=None, normal=None):
         """T-step on-policy rollout.  Returns (env state, disc window,
-        TscTransition, metrics)."""
+        TscTransition, metrics); the metrics are over every rank's envs."""
         cfg = self.cfg
         s = self.slices
         T, N = cfg.num_steps_per_env, self.env.num_envs
@@ -233,15 +239,15 @@ class TscPPO:
             rew_all[t], val_all[t], done_all[t] = total_r, values, out.reset
             logpd_all[t], logpc_all[t] = logp_d, logp_c
             speed = torch.linalg.vector_norm(es3.sim.u[:, :3], dim=-1)
-            steps.append(torch.stack([total_r.mean(), out.rew.mean(), r_i.mean(),
+            steps.append(torch.stack([total_r.sum(), out.rew.sum(), r_i.sum(),
                                       out.reset.sum().float(),
                                       out.reach_goal_cutoff.sum().float(),
-                                      es3.cur_goal_idx.float().mean(),
-                                      (speed > 8.0).float().mean()]))
+                                      es3.cur_goal_idx.float().sum(),
+                                      (speed > 8.0).float().sum(), speed.max()]))
             es = es3
-        per_step = torch.stack(steps)
+        per_step = env_reduce(torch.stack(steps), self.shard)[:, :-1]
         names = ("r_total", "r_t", "r_i", "done", "success", "goal_idx", "overspeed")
-        metrics = dict(zip(names, per_step.mean(dim=0)))
+        metrics = dict(zip(names, per_step.mean(dim=0) / self.env.num_envs_global))
         metrics["done"], metrics["success"] = per_step[:, 3].sum(), per_step[:, 4].sum()
         trs = TscTransition(obs=obs_all, actions=acts_all, rewards=rew_all, dones=done_all,
                             values=val_all, logp_d=logpd_all, logp_c=logpc_all, mean=mean_all,
@@ -250,21 +256,26 @@ class TscPPO:
 
     def compute_gae(self, trs: TscTransition, last_values):
         return compute_gae(trs.rewards, trs.dones, trs.values, last_values, self.cfg.gamma,
-                           self.cfg.lam)
+                           self.cfg.lam, self.shard)
 
     # ------------------------------------------------------------------
 
     def ppo_update(self, ts: TscTrainState, trs: TscTransition, advantages, returns, perm=None):
+        """The PPO minibatch updates.  `perm` runs over the global (T x N)
+        rollout; under a shard each rank takes the minibatch's rows it holds,
+        every loss is its rows' sum over the global minibatch size, and the
+        gradients, the KL and the metrics are summed across ranks before
+        each step."""
         cfg = self.cfg
         s = self.slices
         T, N = trs.rewards.shape
-        B = T * N
         n_mb = cfg.num_mini_batches
-        mb = B // n_mb
+        mb = T * self.env.num_envs_global // n_mb
         if perm is None:
-            perm = self._perm(B)
-        flat = TscTransition(*(x.reshape((B,) + x.shape[2:]) for x in trs))
-        adv_f, ret_f = advantages.reshape(B), returns.reshape(B)
+            perm = self._perm(T * self.env.num_envs_global)
+        flat = TscTransition(*(x.reshape((T * N,) + x.shape[2:]) for x in trs))
+        adv_f, ret_f = advantages.reshape(-1), returns.reshape(-1)
+        rows = mesh.minibatch_rows(perm, n_mb, mb, self.shard)
         coef = priv_reg_coef(cfg.priv_reg_coef_schedule, ts.priv_reg_counter)
 
         ac, est = ts.ac, ts.est
@@ -272,18 +283,16 @@ class TscPPO:
         lr = ts.lr
         outs = []
         for i in range(cfg.num_learning_epochs * n_mb):
-            j = i % n_mb
-            idx = perm[j * mb:(j + 1) * mb]
+            idx = rows[i % n_mb]
             obs, actions = flat.obs[idx], flat.actions[idx]
             old_values, old_mean, old_std = flat.values[idx], flat.mean[idx], flat.std[idx]
             mb_adv, mb_ret = adv_f[idx], ret_f[idx]
 
-            # the estimator's step first (its own Adam)
+            # the estimator's loss (its own Adam, stepped first)
             ts.est_opt.zero_grad(set_to_none=True)
-            el = torch.mean(torch.square(est(obs[:, :s.n_prop_hist]) - obs[:, s.explicit]))
+            err = torch.square(est(obs[:, :s.n_prop_hist]) - obs[:, s.explicit])
+            el = torch.sum(err) / (mb * err.shape[1])
             el.backward()
-            clip_grad_global_norm_(est_params, cfg.max_grad_norm)
-            ts.est_opt.step()
 
             ts.ac_opt.zero_grad(set_to_none=True)
             logits_d, mean_c, std = ac.heads(obs, hist_encoding=False)
@@ -294,19 +303,19 @@ class TscPPO:
             for ratio in (torch.exp(logp_d - flat.logp_d[idx]),
                           torch.exp(logp_c - flat.logp_c[idx])):
                 clipped = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param)
-                surr = surr + torch.mean(torch.maximum(-mb_adv * ratio, -mb_adv * clipped))
+                surr = surr + torch.sum(torch.maximum(-mb_adv * ratio, -mb_adv * clipped)) / mb
             if cfg.use_clipped_value_loss:
                 v_cl = old_values + torch.clamp(value - old_values, -cfg.clip_param,
                                                 cfg.clip_param)
-                value_loss = torch.mean(torch.maximum(torch.square(value - mb_ret),
-                                                      torch.square(v_cl - mb_ret)))
+                value_loss = torch.sum(torch.maximum(torch.square(value - mb_ret),
+                                                     torch.square(v_cl - mb_ret))) / mb
             else:
-                value_loss = torch.mean(torch.square(mb_ret - value))
+                value_loss = torch.sum(torch.square(mb_ret - value)) / mb
             priv_lat = ac.priv_latent(obs)
             with torch.no_grad():
                 hist_lat = ac.hist_latent(obs)
-            priv_reg = torch.mean(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
-            entropy = torch.mean(ent_d + ent_c)
+            priv_reg = torch.sum(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1)) / mb
+            entropy = torch.sum(ent_d + ent_c) / mb
             loss = (surr + cfg.value_loss_coef * value_loss - cfg.entropy_coef * entropy
                     + coef * priv_reg)
             loss.backward()
@@ -315,17 +324,21 @@ class TscPPO:
             # pre-update policy against the rollout's, set before the step
             with torch.no_grad():
                 m, sd = mean_c.detach(), std.detach()
-                kl_mean = torch.mean(torch.sum(
+                kl = torch.sum(torch.sum(
                     torch.log(sd / old_std + 1e-5)
                     + (torch.square(old_std) + torch.square(old_mean - m))
-                    / (2.0 * torch.square(sd)) - 0.5, dim=-1))
-            lr = adapt_lr(lr, float(kl_mean), cfg.desired_kl)
+                    / (2.0 * torch.square(sd)) - 0.5, dim=-1)) / mb
+                stats = torch.stack([loss, el, kl, surr, value_loss, entropy, priv_reg]).detach()
+            if self.shard is not None:
+                stats = mesh.all_reduce_grads_(est_params + ac_params, stats)
+            clip_grad_global_norm_(est_params, cfg.max_grad_norm)
+            ts.est_opt.step()
+            lr = adapt_lr(lr, float(stats[2]), cfg.desired_kl)
             for group in ts.ac_opt.param_groups:
                 group["lr"] = float(lr)
             clip_grad_global_norm_(ac_params, cfg.max_grad_norm)
             ts.ac_opt.step()
-            outs.append(torch.stack([loss.detach(), el.detach(), kl_mean, surr.detach(),
-                                     value_loss.detach(), entropy.detach(), priv_reg.detach()]))
+            outs.append(stats)
         if cfg.min_std > 0:
             with torch.no_grad():
                 ac.std.clamp_(min=cfg.min_std)
@@ -336,32 +349,18 @@ class TscPPO:
 
     def dagger_update(self, ts: TscTrainState, trs: TscTransition, perm=None) -> torch.Tensor:
         """The history encoder toward the privileged latent; returns the
-        mean loss."""
+        mean loss.  `perm` is global, as in ppo_update."""
         cfg = self.cfg
         T, N = trs.rewards.shape
-        B = T * N
         n_mb = cfg.num_mini_batches
-        mb = B // n_mb
+        mb = T * self.env.num_envs_global // n_mb
         if perm is None:
-            perm = self._perm(B)
-        obs_flat = trs.obs.reshape(B, -1)
-        ac = ts.ac
-        params = list(ac.history_encoder.parameters())
-        losses = []
-        for i in range(cfg.num_learning_epochs * n_mb):
-            j = i % n_mb
-            obs = obs_flat[perm[j * mb:(j + 1) * mb]]
-            ts.hist_opt.zero_grad(set_to_none=True)
-            hist_lat = ac.hist_latent(obs)
-            with torch.no_grad():
-                priv_lat = ac.priv_latent(obs)
-            loss = torch.mean(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
-            loss.backward()
-            clip_grad_global_norm_(params, cfg.max_grad_norm)
-            ts.hist_opt.step()
-            losses.append(loss.detach())
+            perm = self._perm(T * self.env.num_envs_global)
+        rows = mesh.minibatch_rows(perm, n_mb, mb, self.shard)
+        losses = dagger_minibatches(ts.ac, ts.hist_opt, trs.obs.reshape(T * N, -1), rows, mb,
+                                    cfg.num_learning_epochs, cfg.max_grad_norm, self.shard)
         ts.priv_reg_counter += 1
-        return torch.stack(losses).mean()
+        return losses.mean()
 
     # ------------------------------------------------------------------
 

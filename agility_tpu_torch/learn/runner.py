@@ -7,6 +7,11 @@ Checkpoints (io/checkpoint.py): every save writes the slim tree
 (`checkpoint_tree`) in the flax msgpack layout as model_<step>.msgpack; a
 full save also writes the exact-resume state (`full_state_tree`) with
 torch.save as state_<step>.pt beside it.
+
+Under env.shard (dist/mesh.py) rank 0 alone prints, writes metrics and
+writes checkpoints; the exact-resume state gathers every rank's envs, so
+its file is the one-rank run's, and a run of any world size resumes from
+it, each rank taking its envs.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv, LocoState
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.io.metrics import MetricWriter
@@ -41,17 +47,63 @@ def tree_shapes(tree, prefix=""):
     return out
 
 
+# env-state fields that are not per env: the same on every rank
+REPLICATED_FIELDS = ("prior_parameters",)
+
+
+def map_env_leaves(tree, fn):
+    """The env-state tree ({field: value}, sim a nested dict) with `fn`
+    applied to each per-env tensor."""
+    return {k: map_env_leaves(v, fn) if isinstance(v, dict)
+            else fn(v) if isinstance(v, torch.Tensor) and v.ndim >= 1
+            and k not in REPLICATED_FIELDS else v for k, v in tree.items()}
+
+
+def env_state_tree(runner):
+    """The runner's env state and disc window as one-rank tensors:
+    gathered from every rank under a shard."""
+    es, shard = runner.env_state, runner.env.shard
+    tree = {"env_state": {**es._asdict(), "sim": es.sim._asdict()},
+            "disc_hist": runner.disc_hist}
+    if shard is None:
+        return tree
+    gather = lambda x: mesh.gather_rows(x, shard)
+    return {"env_state": map_env_leaves(tree["env_state"], gather),
+            "disc_hist": gather(runner.disc_hist)}
+
+
+def restore_env_state(runner, saved, state_cls) -> None:
+    """The env state and disc window of a one-rank exact-resume state,
+    the rank's envs taken under a shard, into the runner."""
+    shard, dev = runner.env.shard, runner.env.device
+    take = (lambda x: shard.take(x).to(dev)) if shard else (lambda x: x.to(dev))
+    es = map_env_leaves(dict(saved["env_state"]), take)
+    sim = eng.EnvState(**{k: v.to(dev) for k, v in es.pop("sim").items()})
+    runner.env_state = state_cls(
+        sim=sim, **{k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in es.items()})
+    runner.disc_hist = take(saved["disc_hist"])
+
+
+def is_writer(runner) -> bool:
+    """Whether this process writes logs and checkpoints: rank 0's."""
+    return runner.env.shard is None or runner.env.shard.rank == 0
+
+
 def save_checkpoints(runner, step: int, full: bool) -> str:
     """A runner's slim tree (`checkpoint_tree`) as model_<step>.msgpack in
     its log directory and, when `full`, its exact-resume state
-    (`full_state_tree`) beside it, each pruned to the runner's rotation.
-    Returns the slim checkpoint's path."""
-    path = ckpt.save(os.path.join(runner.log_dir, "model.msgpack"), runner.checkpoint_tree(),
-                     step=step)
+    (`full_state_tree`, gathered from every rank) beside it, each pruned to
+    the runner's rotation; rank 0 writes.  Returns the slim checkpoint's
+    path."""
+    state = runner.full_state_tree() if full else None
+    path = os.path.join(runner.log_dir, f"model_{step}.msgpack")
+    if not is_writer(runner):
+        return path
+    ckpt.save(path, runner.checkpoint_tree())
     ckpt.prune(runner.log_dir, "model", keep_latest=runner.keep_latest_slim,
                keep_every=runner.keep_every_slim)
     if full:
-        torch.save(runner.full_state_tree(), ckpt.state_path(path))
+        torch.save(state, ckpt.state_path(path))
         ckpt.prune(runner.log_dir, "state", keep_latest=runner.keep_latest_full, ext=".pt")
     return path
 
@@ -78,7 +130,7 @@ class OnPolicyRunner:
         self.alg = SSInfoGAIL(env, algo_cfg, seed=seed)
         self.cfg = algo_cfg
         self.log_dir = log_dir
-        self.writer = MetricWriter(log_dir) if log_dir else None
+        self.writer = MetricWriter(log_dir) if log_dir and is_writer(self) else None
         self.save_interval = 100        # slim model checkpoint (reference cadence)
         self.full_save_interval = 1000  # full exact-resume state (big: ring + env)
         # rotation for long campaigns: the newest few of each artifact, plus
@@ -96,13 +148,16 @@ class OnPolicyRunner:
     def learn(self, num_iterations: int, init_at_random_ep_len: bool = True,
               log_every: int = 10):
         env = self.env
+        say = print if is_writer(self) else (lambda *a, **k: None)
         if init_at_random_ep_len:
             g = torch.Generator(device=env.device).manual_seed(0)
-            self.env_state = self.env_state._replace(episode_length=torch.randint(
-                0, env.max_episode_length, (env.num_envs,), generator=g, device=env.device))
+            ep = torch.randint(0, env.max_episode_length, (env.num_envs_global,), generator=g,
+                               device=env.device)
+            self.env_state = self.env_state._replace(
+                episode_length=env.shard.take(ep) if env.shard else ep)
 
         t_start = time.time()
-        steps_per_iter = self.cfg.num_steps_per_env * env.num_envs
+        steps_per_iter = self.cfg.num_steps_per_env * env.num_envs_global
         t_window = time.time()
         start_iter = self.current_iteration
         it_window = start_iter
@@ -121,7 +176,7 @@ class OnPolicyRunner:
                     self.writer.scalars(m, it)
                     self.writer.scalar("perf/fps", fps, it)
                     self.writer.flush()
-                print(f"it {it:6d} | r_total {m['rollout/r_total']:+.4f} "
+                say(f"it {it:6d} | r_total {m['rollout/r_total']:+.4f} "
                       f"| r_t {m['rollout/r_t']:+.4f} "
                       f"| surr {m['ppo/surrogate']:+.4f} "
                       f"| disc {m['disc/disc']:.4f} "
@@ -133,8 +188,8 @@ class OnPolicyRunner:
             self.save(self.current_iteration)   # final save: exact-resume
         sync(env.device)
         total = time.time() - t_start
-        print(f"trained {num_iterations} iters in {total:.1f}s "
-              f"({num_iterations * steps_per_iter / total:,.0f} env-steps/s)")
+        say(f"trained {num_iterations} iters in {total:.1f}s "
+            f"({num_iterations * steps_per_iter / total:,.0f} env-steps/s)")
 
     # ------------------------------------------------------------------
 
@@ -154,9 +209,9 @@ class OnPolicyRunner:
     def full_state_tree(self):
         """Everything an exact resume needs: the modules, the six optimisers,
         the ring, the normaliser, the counters, task_obs_weight, the trainer's
-        and the env's generator states, the env state and the disc window."""
+        and the env's generator states, the env state and the disc window
+        (every rank's envs: the one-rank layout)."""
         ts = self.train_state
-        es = self.env_state
         return {
             "modules": {"ac": ts.ac.state_dict(), "est": ts.est.state_dict(),
                         "disc": ts.disc.state_dict()},
@@ -168,8 +223,7 @@ class OnPolicyRunner:
             "lr_ac": float(ts.lr_ac), "task_obs_weight": float(ts.task_obs_weight),
             "learning_steps": ts.learning_steps, "priv_reg_counter": ts.priv_reg_counter,
             "generators": {"trainer": self.alg.gen.get_state(), "env": self.env.gen.get_state()},
-            "env_state": {**es._asdict(), "sim": es.sim._asdict()},
-            "disc_hist": self.disc_hist,
+            **env_state_tree(self),
             "iteration": self.current_iteration,
         }
 
@@ -221,12 +275,7 @@ class OnPolicyRunner:
         ts.priv_reg_counter = int(saved["priv_reg_counter"])
         self.alg.gen.set_state(saved["generators"]["trainer"])
         self.env.gen.set_state(saved["generators"]["env"])
-        es = dict(saved["env_state"])
-        sim = eng.EnvState(**{k: v.to(dev) for k, v in es.pop("sim").items()})
-        self.env_state = LocoState(
-            sim=sim, **{k: v.to(dev) if isinstance(v, torch.Tensor) else v
-                        for k, v in es.items()})
-        self.disc_hist = saved["disc_hist"].to(dev)
+        restore_env_state(self, saved, LocoState)
 
     def get_inference_policy(self) -> InferencePolicy:
         """The deterministic policy (estimator swap-in, history-encoded

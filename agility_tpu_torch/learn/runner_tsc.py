@@ -8,7 +8,8 @@ Checkpoints (io/checkpoint.py): every save writes the slim tree
 msgpack layout as model_<step>.msgpack, which the port's play_tsc and the
 JAX package's checkpoint.load_into read; a full save also writes the
 exact-resume state (`full_state_tree`) with torch.save as state_<step>.pt
-beside it.
+beside it.  Under env.shard rank 0 alone prints and writes, as in
+learn/runner.py.
 """
 from __future__ import annotations
 
@@ -22,9 +23,9 @@ from agility_tpu_torch.envs.go2_agility import AgilityState, Go2AgilityEnv
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.io.metrics import MetricWriter
 from agility_tpu_torch.learn.ppo_tsc import BBCFrozen, TscAlgoCfg, TscPPO
-from agility_tpu_torch.learn.runner import read_full_state, save_checkpoints, sync
+from agility_tpu_torch.learn.runner import (env_state_tree, is_writer, read_full_state,
+                                            restore_env_state, save_checkpoints, sync)
 from agility_tpu_torch.learn.ssinfogail import metrics_to_host
-from agility_tpu_torch.physics import engine as eng
 
 
 class TscOnPolicyRunner:
@@ -34,7 +35,7 @@ class TscOnPolicyRunner:
         self.alg = TscPPO(env, bbc, algo_cfg, seed=seed)
         self.cfg = algo_cfg
         self.log_dir = log_dir
-        self.writer = MetricWriter(log_dir) if log_dir else None
+        self.writer = MetricWriter(log_dir) if log_dir and is_writer(self) else None
         self.save_interval = 100        # slim model checkpoint
         self.full_save_interval = 1000  # full exact-resume state (big: env state)
         self.keep_latest_slim = 5
@@ -49,7 +50,8 @@ class TscOnPolicyRunner:
 
     def learn(self, num_iterations: int, log_every: int = 10):
         env = self.env
-        steps_per_iter = self.cfg.num_steps_per_env * env.num_envs
+        say = print if is_writer(self) else (lambda *a, **k: None)
+        steps_per_iter = self.cfg.num_steps_per_env * env.num_envs_global
         t_start = t_window = time.time()
         start_iter = it_window = self.current_iteration
         for it in range(start_iter, start_iter + num_iterations):
@@ -73,7 +75,7 @@ class TscOnPolicyRunner:
                     for k, v in train.items():
                         self.writer.scalar(k, v, it)
                     self.writer.flush()
-                print(f"it {it:6d} | r {m['rollout/r_total']:+.4f} "
+                say(f"it {it:6d} | r {m['rollout/r_total']:+.4f} "
                       f"| r_t {m['rollout/r_t']:+.4f} "
                       f"| goal {m['rollout/goal_idx']:.2f} "
                       f"| succ {train['Train/mean_success_rate']:.3f} "
@@ -87,8 +89,8 @@ class TscOnPolicyRunner:
             self.save(self.current_iteration)   # final save: exact-resume
         sync(env.device)
         total = time.time() - t_start
-        print(f"trained {num_iterations} iters in {total:.1f}s "
-              f"({num_iterations * steps_per_iter / total:,.0f} env-steps/s)")
+        say(f"trained {num_iterations} iters in {total:.1f}s "
+            f"({num_iterations * steps_per_iter / total:,.0f} env-steps/s)")
 
     # ------------------------------------------------------------------
 
@@ -104,17 +106,16 @@ class TscOnPolicyRunner:
     def full_state_tree(self):
         """Everything an exact resume needs: the modules, the three
         optimisers, the learning rate, the priv-reg counter, the trainer's
-        and the env's generator states, the env state and the disc window."""
+        and the env's generator states, the env state and the disc window
+        (every rank's envs: the one-rank layout)."""
         ts = self.train_state
-        es = self.env_state
         return {
             "modules": {"ac": ts.ac.state_dict(), "est": ts.est.state_dict()},
             "optimisers": {k: getattr(ts, k).state_dict()
                            for k in ("ac_opt", "hist_opt", "est_opt")},
             "lr": float(ts.lr), "priv_reg_counter": ts.priv_reg_counter,
             "generators": {"trainer": self.alg.gen.get_state(), "env": self.env.gen.get_state()},
-            "env_state": {**es._asdict(), "sim": es.sim._asdict()},
-            "disc_hist": self.disc_hist,
+            **env_state_tree(self),
             "iteration": self.current_iteration,
         }
 
@@ -141,7 +142,6 @@ class TscOnPolicyRunner:
 
     def _restore(self, saved) -> None:
         ts = self.train_state
-        dev = self.env.device
         ts.ac.load_state_dict(saved["modules"]["ac"])
         ts.est.load_state_dict(saved["modules"]["est"])
         for k, sd in saved["optimisers"].items():
@@ -150,9 +150,4 @@ class TscOnPolicyRunner:
         ts.priv_reg_counter = int(saved["priv_reg_counter"])
         self.alg.gen.set_state(saved["generators"]["trainer"])
         self.env.gen.set_state(saved["generators"]["env"])
-        es = dict(saved["env_state"])
-        sim = eng.EnvState(**{k: v.to(dev) for k, v in es.pop("sim").items()})
-        self.env_state = AgilityState(
-            sim=sim, **{k: v.to(dev) if isinstance(v, torch.Tensor) else v
-                        for k, v in es.items()})
-        self.disc_hist = saved["disc_hist"].to(dev)
+        restore_env_state(self, saved, AgilityState)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs import mocap as mocap_mod
 from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv, LocoState
 from agility_tpu_torch.learn import networks as nets
@@ -133,9 +134,12 @@ def clip_grad_global_norm_(params, max_norm: float) -> None:
 
 
 @torch.no_grad()
-def compute_gae(rewards, dones, values, last_values, gamma: float, lam: float):
+def compute_gae(rewards, dones, values, last_values, gamma: float, lam: float,
+                shard: Optional[mesh.EnvShard] = None):
     """(normalised advantages, returns) of a (T, N) rollout
-    (rollout_storage.py:97-111); the advantages' std is the population one."""
+    (rollout_storage.py:97-111); the advantages' std is the population one.
+    With `shard` the rollout is the rank's envs, and the mean and the std
+    (two passes) are those of every rank's advantages."""
     next_values = torch.cat([values[1:], last_values[None]], dim=0)
     advantages = torch.empty_like(values)
     adv = torch.zeros_like(last_values)
@@ -145,7 +149,13 @@ def compute_gae(rewards, dones, values, last_values, gamma: float, lam: float):
         adv = delta + not_done * gamma * lam * adv
         advantages[t] = adv
     returns = advantages + values
-    advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+    if shard is None:
+        mean, std = advantages.mean(), advantages.std(correction=0)
+    else:
+        n = advantages.numel() * shard.world
+        mean = mesh.all_reduce_(advantages.sum()[None])[0] / n
+        std = torch.sqrt(mesh.all_reduce_(torch.square(advantages - mean).sum()[None])[0] / n)
+    advantages = (advantages - mean) / (std + 1e-8)
     return advantages, returns
 
 
@@ -182,6 +192,8 @@ class SSInfoGAIL:
         self.env = env
         self.cfg = cfg
         self.device = env.device
+        # env.shard (dist/mesh.py): this rank's envs of the global batch
+        self.shard = env.shard
         ecfg = env.cfg.env
         self.slices = nets.ObsSlices(ecfg.num_prop, ecfg.num_explicit, ecfg.num_latent,
                                      ecfg.history_len, ecfg.num_command)
@@ -229,7 +241,7 @@ class SSInfoGAIL:
 
     def init_train_state(self) -> TrainState:
         cfg = self.cfg
-        N = self.env.num_envs
+        N = self.env.num_envs_global    # the ring is replicated: every rank's rows
         ac, est, disc = (copy.deepcopy(m) for m in (self._ac0, self._est0, self._disc0))
         awd = cfg.disc_adam_weight_decay
 
@@ -256,19 +268,22 @@ class SSInfoGAIL:
         """(minibatches, rows a minibatch) of one discriminator update."""
         cfg = self.cfg
         n_mb = cfg.num_learning_epochs * cfg.num_mini_batches * 4
-        return n_mb, max(1, cfg.num_steps_per_env * self.env.num_envs // n_mb)
+        return n_mb, max(1, cfg.num_steps_per_env * self.env.num_envs_global // n_mb)
 
     def draw(self, ts: TrainState) -> Draws:
         """One iteration's draws from the trainer's generator; the ring rows
-        are uniform over the rows it will hold after the rollout."""
-        T, N = self.cfg.num_steps_per_env, self.env.num_envs
+        are uniform over the rows it will hold after the rollout.  The
+        permutations run over the global (T x N) rollout."""
+        T, N = self.cfg.num_steps_per_env, self.env.num_envs_global
         return Draws(self._noise(), self._perm(T * N),
                      self._disc_idx(min(ts.ring.size + T * N, ts.ring.capacity)),
                      self._perm(T * N))
 
     def _noise(self):
-        shape = (self.cfg.num_steps_per_env, self.env.num_envs, self.num_actions)
-        return torch.randn(shape, generator=self.gen, device=self.device)
+        """(T, N, A) unit normals, drawn at the global N, the rank's envs taken."""
+        shape = (self.cfg.num_steps_per_env, self.env.num_envs_global, self.num_actions)
+        noise = torch.randn(shape, generator=self.gen, device=self.device)
+        return self.shard.take(noise, 1) if self.shard else noise
 
     def _perm(self, n: int):
         return torch.randperm(n, generator=self.gen, device=self.device)
@@ -327,7 +342,9 @@ class SSInfoGAIL:
     def rollout(self, ts: TrainState, es: LocoState, disc_hist, hist_encoding: bool,
                 action_noise=None):
         """T-step on-policy rollout; inserts the policy side's disc rows into
-        the ring.  Returns (env state, disc window, Transition, metrics)."""
+        the ring (every rank's, under a shard).  Returns (env state, disc
+        window, Transition, metrics); the metrics are over every rank's
+        envs."""
         cfg = self.cfg
         s = self.slices
         T, N = cfg.num_steps_per_env, self.env.num_envs
@@ -360,8 +377,8 @@ class SSInfoGAIL:
             # time-out bootstrap (gail.py:203-205)
             total_r = total_r + cfg.gamma * values * out.time_out
 
-            ts.ring.insert(torch.cat([disc_hist2.reshape(N, -1), es2.latent_eps, es2.latent_c],
-                                     dim=-1))
+            rows = torch.cat([disc_hist2.reshape(N, -1), es2.latent_eps, es2.latent_c], dim=-1)
+            ts.ring.insert(mesh.gather_rows(rows, self.shard) if self.shard else rows)
             # after the insert, reset envs restart the window from the fresh obs
             disc_hist = torch.where(out.reset[:, None, None],
                                     out.disc_obs[:, None].expand(-1, self.disc_obs_len, -1),
@@ -372,13 +389,13 @@ class SSInfoGAIL:
             # exploit detector (physics/debug.py speed_gate): sustained
             # overspeed means an energy leak, not locomotion
             speed = torch.linalg.vector_norm(es2.sim.u[:, :3], dim=-1)
-            steps.append(torch.stack([r_i.mean(), r_us.mean(), r_ss.mean(), out.rew.mean(),
-                                      total_r.mean(), out.reset.sum().float(),
-                                      (speed > 8.0).float().mean(), speed.max()]))
+            steps.append(torch.stack([r_i.sum(), r_us.sum(), r_ss.sum(), out.rew.sum(),
+                                      total_r.sum(), out.reset.sum().float(),
+                                      (speed > 8.0).float().sum(), speed.max()]))
             es = es2
-        per_step = torch.stack(steps)
+        per_step = env_reduce(torch.stack(steps), self.shard)
         names = ("r_i", "r_us", "r_ss", "r_t", "r_total", "ep_done", "overspeed", "max_speed")
-        metrics = dict(zip(names, per_step.mean(dim=0)))
+        metrics = dict(zip(names, per_step.mean(dim=0) / self.env.num_envs_global))
         metrics["ep_done"] = per_step[:, 5].sum()
         metrics["max_speed"] = per_step[:, 7].max()
         trs = Transition(obs=obs_all, critic_obs=obs_all, actions=acts_all, rewards=rew_all,
@@ -392,23 +409,28 @@ class SSInfoGAIL:
 
     def compute_gae(self, trs: Transition, last_values):
         return compute_gae(trs.rewards, trs.dones, trs.values, last_values, self.cfg.gamma,
-                           self.cfg.lam)
+                           self.cfg.lam, self.shard)
 
     # ------------------------------------------------------------------
     # PPO update (gail.py:328-413)
     # ------------------------------------------------------------------
 
     def ppo_update(self, ts: TrainState, trs: Transition, advantages, returns, perm=None):
+        """The PPO minibatch updates.  `perm` runs over the global (T x N)
+        rollout; under a shard each rank takes the minibatch's rows it holds,
+        every loss is its rows' sum over the global minibatch size, and the
+        gradients, the KL and the metrics are summed across ranks before
+        each step."""
         cfg = self.cfg
         s = self.slices
         T, N = trs.rewards.shape
-        B = T * N
         n_mb = cfg.num_mini_batches
-        mb = B // n_mb
+        mb = T * self.env.num_envs_global // n_mb
         if perm is None:
-            perm = self._perm(B)
-        flat = Transition(*(x.reshape((B,) + x.shape[2:]) for x in trs))
-        adv_f, ret_f = advantages.reshape(B), returns.reshape(B)
+            perm = self._perm(T * self.env.num_envs_global)
+        flat = Transition(*(x.reshape((T * N,) + x.shape[2:]) for x in trs))
+        adv_f, ret_f = advantages.reshape(-1), returns.reshape(-1)
+        rows = mesh.minibatch_rows(perm, n_mb, mb, self.shard)
 
         coef = priv_reg_coef(cfg.priv_reg_coef_schedule, ts.priv_reg_counter)
 
@@ -418,50 +440,48 @@ class SSInfoGAIL:
         lr = ts.lr_ac
         outs = []
         for i in range(cfg.num_learning_epochs * n_mb):
-            j = i % n_mb
-            idx = perm[j * mb:(j + 1) * mb]
+            idx = rows[i % n_mb]
             obs, actions = flat.obs[idx], flat.actions[idx]
             old_values, old_logp = flat.values[idx], flat.log_prob[idx]
             old_mean, old_std = flat.mean[idx], flat.std[idx]
             mb_adv, mb_ret = adv_f[idx], ret_f[idx]
 
-            # estimator update (independent Adam)
+            # estimator loss (its own Adam)
             ts.est_opt.zero_grad(set_to_none=True)
-            el = torch.mean(torch.square(est(obs[:, s.prop]) - obs[:, s.explicit]))
+            el = torch.sum(torch.square(est(obs[:, s.prop]) - obs[:, s.explicit])) / (
+                mb * s.num_explicit)
             el.backward()
-            clip_grad_global_norm_(est_params, cfg.max_grad_norm)
-            ts.est_opt.step()
 
             ts.ac_opt.zero_grad(set_to_none=True)
             mean = ac.action_mean(obs, hist_encoding=False)
             std = ac.std
             logp = nets.gaussian_log_prob(mean, std, actions)
             value = ac.value(obs)
-            entropy = nets.gaussian_entropy(std.expand_as(mean))
+            entropy = torch.sum(nets.gaussian_entropy(std.expand_as(mean))) / mb
 
             ratio = torch.exp(logp - old_logp)
             surr = -mb_adv * ratio
             surr_cl = -mb_adv * torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param)
-            surrogate_loss = torch.mean(torch.maximum(surr, surr_cl))
+            surrogate_loss = torch.sum(torch.maximum(surr, surr_cl)) / mb
             if cfg.use_clipped_value_loss:
                 v_cl = old_values + torch.clamp(value - old_values, -cfg.clip_param,
                                                 cfg.clip_param)
-                value_loss = torch.mean(torch.maximum(torch.square(value - mb_ret),
-                                                      torch.square(v_cl - mb_ret)))
+                value_loss = torch.sum(torch.maximum(torch.square(value - mb_ret),
+                                                     torch.square(v_cl - mb_ret))) / mb
             else:
-                value_loss = torch.mean(torch.square(mb_ret - value))
+                value_loss = torch.sum(torch.square(mb_ret - value)) / mb
             # bound loss (soft bound 1.0)
             b_loss = torch.sum(torch.square(torch.clamp(mean - 1.0, min=0.0))
-                               + torch.square(torch.clamp(mean + 1.0, max=0.0)), dim=-1)
+                               + torch.square(torch.clamp(mean + 1.0, max=0.0))) / mb
             # priv-reg latent regularisation
             priv_lat = ac.priv_latent(obs)
             with torch.no_grad():
                 hist_lat = ac.hist_latent(obs)
-            priv_reg_loss = torch.mean(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
+            priv_reg_loss = torch.sum(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1)) / mb
             loss = (cfg.surrogate_loss_coef * surrogate_loss
                     + cfg.value_loss_coef * value_loss
-                    + cfg.bounds_loss_coef * torch.mean(b_loss)
-                    - cfg.entropy_coef * torch.mean(entropy)
+                    + cfg.bounds_loss_coef * b_loss
+                    - cfg.entropy_coef * entropy
                     + coef * priv_reg_loss)
             loss.backward()
 
@@ -472,15 +492,18 @@ class SSInfoGAIL:
                 kl = torch.sum(torch.log(sd / old_std + 1e-5)
                                + (torch.square(old_std) + torch.square(old_mean - m))
                                / (2.0 * torch.square(sd)) - 0.5, dim=-1)
-                kl_mean = torch.mean(kl)
-            lr = adapt_lr(lr, float(kl_mean), cfg.desired_kl)
+                stats = torch.stack([loss, el, torch.sum(kl) / mb, surrogate_loss, value_loss,
+                                     entropy, priv_reg_loss]).detach()
+            if self.shard is not None:
+                stats = mesh.all_reduce_grads_(est_params + ac_params, stats)
+            clip_grad_global_norm_(est_params, cfg.max_grad_norm)
+            ts.est_opt.step()
+            lr = adapt_lr(lr, float(stats[2]), cfg.desired_kl)
             for group in ts.ac_opt.param_groups:
                 group["lr"] = float(lr)
             clip_grad_global_norm_(ac_params, cfg.max_grad_norm)
             ts.ac_opt.step()
-            outs.append(torch.stack([loss.detach(), el.detach(), kl_mean,
-                                     surrogate_loss.detach(), value_loss.detach(),
-                                     torch.mean(entropy).detach(), priv_reg_loss.detach()]))
+            outs.append(stats)
         ts.lr_ac = lr
         names = ("loss", "est", "kl", "surrogate", "value", "entropy", "priv_reg")
         metrics = {f"ppo/{k}": v for k, v in zip(names, torch.stack(outs).mean(dim=0))}
@@ -580,31 +603,19 @@ class SSInfoGAIL:
     # ------------------------------------------------------------------
 
     def dagger_update(self, ts: TrainState, trs: Transition, perm=None):
+        """The history encoder toward the privileged latent, over the
+        minibatches of `perm` (global, as in ppo_update)."""
         cfg = self.cfg
         T, N = trs.rewards.shape
-        B = T * N
         n_mb = cfg.num_mini_batches
-        mb = B // n_mb
+        mb = T * self.env.num_envs_global // n_mb
         if perm is None:
-            perm = self._perm(B)
-        obs_flat = trs.obs.reshape(B, -1)
-        ac = ts.ac
-        params = list(ac.history_encoder.parameters())
-        losses = []
-        for i in range(cfg.num_learning_epochs * n_mb):
-            j = i % n_mb
-            obs = obs_flat[perm[j * mb:(j + 1) * mb]]
-            ts.hist_opt.zero_grad(set_to_none=True)
-            hist_lat = ac.hist_latent(obs)
-            with torch.no_grad():
-                priv_lat = ac.priv_latent(obs)
-            loss = torch.mean(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
-            loss.backward()
-            clip_grad_global_norm_(params, cfg.max_grad_norm)
-            ts.hist_opt.step()
-            losses.append(loss.detach())
+            perm = self._perm(T * self.env.num_envs_global)
+        rows = mesh.minibatch_rows(perm, n_mb, mb, self.shard)
+        losses = dagger_minibatches(ts.ac, ts.hist_opt, trs.obs.reshape(T * N, -1), rows, mb,
+                                    cfg.num_learning_epochs, cfg.max_grad_norm, self.shard)
         ts.priv_reg_counter += 1
-        return {"dagger/hist_latent": torch.stack(losses).mean()}
+        return {"dagger/hist_latent": losses.mean()}
 
     # ------------------------------------------------------------------
     # one full training iteration
@@ -649,6 +660,44 @@ class SSInfoGAIL:
                 ts.task_obs_weight - np.float32(1.0 / ncfg.task_obs_weight_decay_steps)))
         metrics = {**{f"rollout/{k}": v for k, v in roll_m.items()}, **ppo_m, **disc_m}
         return ts, es, disc_hist, metrics
+
+
+def env_reduce(per_step: torch.Tensor, shard: Optional[mesh.EnvShard]) -> torch.Tensor:
+    """A rollout's (T, k) per-step reductions over the rank's envs, the
+    last column a max and the others sums, reduced over every rank's
+    envs (unchanged without a shard)."""
+    if shard is None:
+        return per_step
+    sums, mx = per_step[:, :-1].contiguous(), per_step[:, -1].contiguous()
+    mesh.all_reduce_(sums)
+    mesh.all_reduce_(mx, "max")
+    return torch.cat([sums, mx[:, None]], dim=1)
+
+
+def dagger_minibatches(ac, opt, obs_flat, rows, mb: int, epochs: int, max_grad_norm: float,
+                       shard: Optional[mesh.EnvShard]) -> torch.Tensor:
+    """DAgger's minibatch steps (gail.py:543-575): each of `epochs` passes
+    over the minibatches' `rows` of obs_flat moves the history encoder
+    toward the privileged latent (the mean norm of their difference over
+    the global minibatch of `mb` rows; gradients summed across ranks under
+    a shard).  Returns each step's loss."""
+    params = list(ac.history_encoder.parameters())
+    losses = []
+    for i in range(epochs * len(rows)):
+        obs = obs_flat[rows[i % len(rows)]]
+        opt.zero_grad(set_to_none=True)
+        hist_lat = ac.hist_latent(obs)
+        with torch.no_grad():
+            priv_lat = ac.priv_latent(obs)
+        loss = torch.sum(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1)) / mb
+        loss.backward()
+        total = loss.detach()[None]
+        if shard is not None:
+            total = mesh.all_reduce_grads_(params, total)
+        clip_grad_global_norm_(params, max_grad_norm)
+        opt.step()
+        losses.append(total[0])
+    return torch.stack(losses)
 
 
 def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels from the
 repository's sources, checks each against its plain-torch version at the main
-paths' shapes, then drives the port's serving paths at full width — the
-BBC policy rollout with its gait verdict (agility_tpu_torch.cli.play_bbc
---gait_bands), the TSC obstacle-course evaluation (agility_tpu_torch.cli.
-play_tsc, its teacher resolved by run name) and the depth student's
-(play_tsc --use_camera) — its training paths (cli/train_bbc, on the
-synthetic clips and on clip files through --mocap_dir, cli/train_tsc and
-train_tsc --use_camera) and the policy export, and checks what comes out.
+paths' shapes (the 32k tasks' included), then drives the port's serving
+paths at full width — the BBC policy rollout with its gait verdict
+(agility_tpu_torch.cli.play_bbc --gait_bands), the TSC obstacle-course
+evaluation (agility_tpu_torch.cli.play_tsc, its teacher resolved by run
+name) and the depth student's (play_tsc --use_camera) — its training paths
+(cli/train_bbc, on the synthetic clips and on clip files through
+--mocap_dir, cli/train_tsc and train_tsc --use_camera), the policy export,
+env-axis data parallelism (two ranks on the card against one process) and
+the 32k tasks through --shard, and checks what comes out.
 
     python3 chip_smoke.py            # needs one CUDA card; exits nonzero without one
 
@@ -87,11 +89,11 @@ Phases (any failure exits nonzero and prints no result line):
                (the disc update's within DISC_PARAM_TOL), as |card - CPU| /
                |CPU| over each network.
  10. BBC train — cli/train_bbc at 4096 envs on go2_locomotion with the full
-               AlgoCfg for 3 iterations (iteration 0 runs DAgger): each
+               AlgoCfg for 2 iterations (iteration 0 runs DAgger): each
                iteration's time and its stages' times (CUDA events), env-steps/s
-               over iterations 1-2, peak device memory, the last metrics; K1
-               launches = 4 x 24 x 3, K2 = 24 x 3 (counted after the runner's
-               init), every parameter and metric finite, ring size 3 x 24 x
+               over iteration 1, peak device memory, the last metrics; K1
+               launches = 4 x 24 x 2, K2 = 24 x 2 (counted after the runner's
+               init), every parameter and metric finite, ring size 2 x 24 x
                4096, normaliser count above its start, and the slim checkpoint
                read back by play_bbc's policy loader to equal tensors; the env
                step alone (zero actions) timed before and after training; then
@@ -128,10 +130,10 @@ Phases (any failure exits nonzero and prints no result line):
  14. TSC train — cli/train_tsc at 6144 envs on 64 courses with the frozen
                logs/bbc_r5/bbc_final.msgpack, the reference's teacher flags
                (--randomize_start --randomize_base_mass --randomize_base_com
-               --push_robots) and the full TscAlgoCfg for 3 iterations
+               --push_robots) and the full TscAlgoCfg for 2 iterations
                (iteration 0 runs DAgger): timed as BBC train; K1 launches = 4
-               x 24 x 3, K2 = K3 = 24 x 3, every parameter and metric finite,
-               priv_reg_counter 4, std >= min_std, the slim checkpoint read
+               x 24 x 2, K2 = K3 = 24 x 2, every parameter and metric finite,
+               priv_reg_counter 3, std >= min_std, the slim checkpoint read
                back by params_from_jax_tsc to equal tensors; then one more
                iteration under torch.profiler.
  15. vision parity — one depth-student iteration of 64 envs on 8 courses
@@ -147,12 +149,12 @@ Phases (any failure exits nonzero and prints no result line):
                envs on 64 courses, the full VisionCfg (T = 24, six BYOL
                minibatches) and the 87 x 58 camera with 32 march samples,
                the teacher logs/agility/r5/model_12000.msgpack resolved
-               through a temporary --log_root that links it, for 3
+               through a temporary --log_root that links it, for 2
                iterations: timed as BBC train, with each stage (the
                estimator before a refresh, the ray-march, depth processing,
                encoder, heads and commands, env step, update, BYOL) and the ray-march's ms a refresh and share
-               of an iteration; K1 launches = 4 x 24 x 3, K2 = K3 = 24 x 3,
-               every parameter and metric finite, vision_3.msgpack read back
+               of an iteration; K1 launches = 4 x 24 x 2, K2 = K3 = 24 x 2,
+               every parameter and metric finite, vision_2.msgpack read back
                by params_from_jax_vision to equal tensors; then one more
                iteration under torch.profiler.
  17. vision play — cli/play_tsc --use_camera at 256 envs on 64 courses
@@ -161,6 +163,30 @@ Phases (any failure exits nonzero and prints no result line):
                K3 = steps + 1, every state finite, median base height over
                the folded floor in [0.15, 0.45] m, env-steps/s; then two
                steps under torch.profiler.
+ 18. DDP parity — dist/mesh.py with two gloo ranks on the one card
+               (mesh.launch; NCCL refuses two ranks on one device) against
+               one process on the card: a BBC env step and two TSC env steps
+               (64 envs; 64 x 8 courses, a quarter finishing their course,
+               the curriculum due), one BBC and one TSC teacher iteration (T
+               = 8, train parity's configs), and the update stages on the
+               one-process rollout at two trainer sizes; gated at
+               tests/test_dist.py's tolerances (phase_ddp_parity states
+               them), the ranks' parameters bit-identical, K1-K3 launched
+               in each rank.
+ 19. BBC train 32k — cli/train_bbc --task go2_locomotion_32k --shard in a
+               one-rank NCCL group: 32768 envs on the 8 x 8 terrain, the full
+               AlgoCfg, 1 iteration (DAgger, the saves): timed as BBC train
+               (env-steps/s of that iteration), the collectives counted and
+               timed, the env step's busy share (two steps profiled), peak
+               memory, launches K1 96 / K2 24, ring 786,432 of 983,040 rows,
+               both checkpoints read back equal; then K1 (warm and cold) and
+               K2 against their plain versions at N = 32768.
+ 20. TSC train 32k — cli/train_tsc --task go2_32k --shard: 32768 envs on
+               256 courses, the teacher flags, the frozen bbc_final, 1
+               iteration; as BBC train 32k, with the world's generation
+               timed, launches K1 96 / K2 24 / K3 24, priv_reg_counter 2;
+               then K1 (64 envs pressed into the roof), K2 and K3 at N =
+               32768 on the 256-course world.
 The line before the kernels' JSON record gives the script's total wall
 time; the line before the last is the kernels' JSON record; the last line
 is the device record.
@@ -191,7 +217,10 @@ NUM_ENVS = 4096     # the BBC path's width
 STEPS = 250         # control steps of the BBC slice phase
 TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
 TSC_STEPS = 100     # control steps of the TSC slice phase (cut from 200 for the script's time)
-TRAIN_ITERS = 3     # iterations of the BBC, TSC and vision train phases
+TRAIN_ITERS = 2     # iterations of the BBC, TSC and vision train phases (cut from 3 for
+#                     the 32k phases' time)
+BIG_ENVS = 32768    # the 32k tasks' width (go2_locomotion_32k, go2_32k), one iteration each
+DDP_ENVS = 64       # DDP parity: 2 gloo ranks on one card against one process
 VISION_ENVS = 256   # the depth student's width (DepthCfg.camera_num_envs), on 64 courses
 VISION_STEPS = 50   # control steps of the vision play phase
 # the refresh images, card vs CPU (tests/test_torch_vision.py's rule): the
@@ -211,6 +240,9 @@ DISC_PARAM_TOL = 1e-3
 # magnify their differences
 ROLLOUT_TOL = 1e-2
 SOA_TOL = dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2)
+# DDP parity, 2 ranks against 1 (tests/test_dist.py:31-36,61-66): rollout/r_total
+# relative, the parameters relative and absolute, the per-env end states absolute
+DDP_TOL = dict(r_total=1e-4, rtol=1e-3, atol=1e-4, state=1e-5)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 FLUSH_BYTES = 256 << 20     # written between flushed calls: five times the 50 MB L2
@@ -396,19 +428,23 @@ def phase_k1(cases):
     return rows
 
 
-def course_case(n, seed=0):
+def course_case(n, seed=0, env=None):
     """The default 64-course world on the card (the TSC slice's world: play
-    seed 0), n centres on its goal waypoints (which lie on the obstacles)
-    jittered by up to 0.3 m, per-env weights over the bar, tire and tilt
-    ranges, and each env's 132 scan points at a random heading."""
+    seed 0), or TSC env `env`'s world, n centres on its goal waypoints
+    (which lie on the obstacles) jittered by up to 0.3 m, per-env weights
+    over the bar, tire and tilt ranges, and each env's 132 scan points at a
+    random heading."""
     from agility_tpu_torch.physics import heightfield as hf
     from agility_tpu_torch.terrain import obstacle as obst
 
     cfg = obst.ObstacleCfg()
-    world = obst.generate(cfg, seed=seed)
-    grid = hf.from_numpy(world.height, world.hscale, world.origin, "cuda",
-                         layer_id=world.layer_id, lever=world.lever, ceiling=world.ceil,
-                         ceiling_layer=world.ceil_layer)
+    if env is None:
+        world = obst.generate(cfg, seed=seed)
+        grid = hf.from_numpy(world.height, world.hscale, world.origin, "cuda",
+                             layer_id=world.layer_id, lever=world.lever, ceiling=world.ceil,
+                             ceiling_layer=world.ceil_layer)
+    else:
+        world, grid = env.world, env.grid
     rng = np.random.default_rng(seed)
     goals = world.goals[:, :, :2].reshape(-1, 2)
     c = goals[np.arange(n) % len(goals)] + rng.uniform(-0.3, 0.3, (n, 2))
@@ -433,7 +469,14 @@ def k2_cases(bbc):
     every other centre anywhere on the map or up to 1 m off it)."""
     grid, c, w, _, _, _ = course_case(TSC_ENVS)
     vgrid, vc, vw, _, _, _ = course_case(VISION_ENVS)
-    env, s, params = bbc
+    return [("tsc", grid, c, 32, w), ("tsc_vision", vgrid, vc, 32, vw),
+            bbc_window_case("bbc", *bbc)]
+
+
+def bbc_window_case(label, env, s, params):
+    """K2's inputs on a BBC env's grid (one surface, no weights): windows
+    at the spawn points of states `s` and, for every other env, anywhere on
+    the map or up to 1 m off it."""
     bgrid, size = env.grid, env.engine_cfg.patch_size
     H, W = bgrid.height.shape
     bc = s.base_pos[:, :2].clone()
@@ -441,8 +484,7 @@ def k2_cases(bbc):
     span = torch.tensor([H, W], device=bc.device) * bgrid.hscale + 2.0
     g = torch.Generator(device=bc.device).manual_seed(0)
     bc[1::2] = lo + span * torch.rand(bc[1::2].shape, generator=g, device=bc.device)
-    return [("tsc", grid, c, 32, w), ("tsc_vision", vgrid, vc, 32, vw),
-            ("bbc", bgrid, bc.contiguous(), size, params.hf_weights)]
+    return (label, bgrid, bc.contiguous(), size, params.hf_weights)
 
 
 def k2_reads(grid, ref, w):
@@ -496,14 +538,15 @@ def _k2_check(label, grid, c, size, w):
     return ref, dict(max_abs_err=err, cells=cells, sectors=sectors, routes=cfg["routes"], **t)
 
 
-def phase_k2(bbc):
-    """K2 at the TSC paths' shapes (course world, weights, ceiling; the
-    teacher's N and the depth student's) and at the BBC path's (one surface,
-    no weights, windows clamped at the map's edge)."""
+def phase_k2(cases):
+    """K2 on each (label, grid, centres, size, weights) case: at the TSC
+    paths' shapes (course world, weights, ceiling; the teacher's N and the
+    depth student's) and at the BBC path's (one surface, no weights, windows
+    clamped at the map's edge)."""
     from agility_tpu_torch.physics import heightfield as hf
 
     rows = {}
-    for label, grid, c, size, w in k2_cases(bbc):
+    for label, grid, c, size, w in cases:
         ref, rows[label] = _k2_check(label, grid, c, size, w)
         ar = torch.arange(size, device="cuda")
         ix, iy = (ref.x0[:, None] + ar)[:, :, None], (ref.y0[:, None] + ar)[:, None, :]
@@ -519,16 +562,17 @@ def phase_k2(bbc):
             H, W = grid.height.shape
             clamped = int(((ref.x0 == 0) | (ref.x0 == H - size) | (ref.y0 == 0)
                            | (ref.y0 == W - size)).sum())
-            print(f"K2 bbc: {clamped} windows clamped at the map's edge", flush=True)
+            print(f"K2 {label}: {clamped} windows clamped at the map's edge", flush=True)
             if clamped == 0:
-                raise SystemExit("K2 bbc: no window clamps at the map's edge")
+                raise SystemExit(f"K2 {label}: no window clamps at the map's edge")
     return rows
 
 
-def k3_case(n):
+def k3_case(n, env=None):
     """K3's inputs at a TSC path's shape, N = `n` scans: (grid, scan
-    centres, window 34, weights, px, py) on the course world."""
-    grid, _, w, sc, px, py = course_case(n)
+    centres, window 34, weights, px, py) on the course world (`env`'s, if
+    given)."""
+    grid, _, w, sc, px, py = course_case(n, env=env)
     return grid, sc, 34, w, px, py
 
 
@@ -554,14 +598,14 @@ def k3_moved(args, out, cells, names):
     return cells * sum(getattr(g, f).element_size() for f in names) + nbytes(sc, w, px, py, out)
 
 
-def phase_k3():
-    """K3 against its plain version at the TSC paths' shapes: the teacher's
-    N = 6144 scans and the depth student's N = 256."""
+def phase_k3(cases):
+    """K3 against its plain version on each (label, inputs) case: at the
+    TSC paths' shapes, the teacher's N = 6144 scans and the depth student's
+    N = 256."""
     from agility_tpu_torch.kernels import scandots as k3
 
     rows = {}
-    for label, n in (("tsc", TSC_ENVS), ("tsc_vision", VISION_ENVS)):
-        args = k3_case(n)
+    for label, args in cases:
         grid, sc, size, w, px, py = args
         got = k3.scandots(*args)
         again = k3.scandots(*args)
@@ -996,21 +1040,29 @@ def phase_tsc_train_parity(num_envs=64, courses=8, steps=8):
         raise SystemExit("TSC train parity: a train stage on the card disagrees with the CPU's")
 
 
-def timed_training(label, cli, argv, num_envs):
-    """Build a runner through `cli`'s build (timed), time the env step alone,
-    train through `cli`'s train with a CUDA event at every stage mark and
-    the host clock, synchronised, at each iteration's start (before its
-    draws) and end (after the runner's log line, events and saves), then
-    time the env step again.  Prints each iteration's stages and the rate
-    over iterations 1-2; returns (runner, launches in training, mean
-    iteration ms over iterations 1-2)."""
+def timed_training(label, cli, argv, num_envs, probe_steps=8):
+    """Build a runner through `cli`'s build (timed), time the env step alone
+    (`probe_steps` steps; 0 skips it), train through `cli`'s train with a
+    CUDA event at every stage mark and the host clock, synchronised, at
+    each iteration's start (before its draws) and end (after the runner's
+    log line, events and saves), then time the env step again.  Counts the
+    kernels' launches and the collectives (dist/mesh.py's all-reduces, each
+    timed by CUDA events) in training.  Prints each iteration's stages and
+    the rate over iterations 1 to the last (iteration 0, with DAgger, where
+    it is the only one); returns a dict: runner, launches, it_ms (mean
+    iteration ms over those), its (stage ms per iteration), wall_ms (each
+    iteration's host time), metrics (each iteration's), peak (bytes),
+    rate, build_s, collectives (calls) and collective_ms."""
+    from agility_tpu_torch.dist import mesh
+    from agility_tpu_torch.learn.ssinfogail import metrics_to_host
+
     args = cli.get_args(argv)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     runner = cli.build(args)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    marks, host = [], {"start": [], "end": []}
+    marks, host, metrics = [], {"start": [], "end": []}, []
 
     def mark(stage):
         ev = torch.cuda.Event(enable_timing=True)
@@ -1019,18 +1071,26 @@ def timed_training(label, cli, argv, num_envs):
         if stage in host:
             torch.cuda.synchronize()
             host[stage].append(time.perf_counter())
+        if stage == "end":
+            metrics.append(metrics_to_host(runner.last_metrics))
 
-    step_before = env_step_ms(runner)
+    step_before = env_step_ms(runner, probe_steps) if probe_steps else float("nan")
     runner.alg.timer = mark
     _counts_zero()
+    mesh.all_reduce_.calls, mesh.all_reduce_.events = 0, []
     t0 = time.perf_counter()
-    cli.train(runner, args)
-    torch.cuda.synchronize()
+    try:
+        cli.train(runner, args)
+        torch.cuda.synchronize()
+    finally:
+        n_coll, coll = mesh.all_reduce_.calls, mesh.all_reduce_.events
+        mesh.all_reduce_.events = None
     wall = time.perf_counter() - t0
     launches = _counts()
+    coll_ms = sum(a.elapsed_time(b) for a, b in coll)
     runner.alg.timer = None
     peak = torch.cuda.max_memory_allocated()
-    step_after = env_step_ms(runner)
+    step_after = env_step_ms(runner, probe_steps) if probe_steps else float("nan")
 
     # per iteration: each stage's time from the events (from the mark
     # before it, summed over a stage's marks; "end" is the runner's work
@@ -1044,24 +1104,29 @@ def timed_training(label, cli, argv, num_envs):
         prev = ev
     wall_ms = [(b - a) * 1e3 for a, b in zip(host["start"], host["end"])]
     T = runner.cfg.num_steps_per_env
-    # all the work from iteration 1's start to iteration 2's end
-    rate = (2 * T * num_envs / (host["end"][2] - host["start"][1])
-            if len(wall_ms) >= 3 else float("nan"))
+    # all the work from iteration 1's start to the last one's end
+    first = 1 if len(wall_ms) >= 2 else 0
+    rate = ((len(wall_ms) - first) * T * num_envs / (host["end"][-1] - host["start"][first]))
+    it_ms = float(np.mean(wall_ms[first:]))
     for i, (ms, it) in enumerate(zip(wall_ms, its)):
         print(f"{label} iteration {i}: {ms:.1f} ms on the host clock, {sum(it.values()):.1f} "
               "ms of events; stages (ms) " + ", ".join(f"{k} {v:.1f}" for k, v in it.items()),
               flush=True)
     print(f"{label}: {num_envs} envs x {T} steps x {len(wall_ms)} iterations in {wall:.1f} s "
-          f"(build {t_build:.1f} s); {rate:.1f} env-steps/s over iterations 1-2 (host "
-          f"clock, synchronised, start to end); launches {launches}; peak device memory "
-          f"{peak / 2**30:.3f} GiB (max_memory_allocated) on {torch.cuda.get_device_name(0)}",
-          flush=True)
-    step_stage = "env" if "env" in its[0] else "rollout"
-    print(f"{label}: the env step alone (zero actions, no trainer) {step_before:.1f} ms "
-          f"before training, {step_after:.1f} ms after; the rollout's {step_stage} stage a "
-          "step " + ", ".join(f"{it[step_stage] / T:.1f}" for it in its) + " ms", flush=True)
-    return (runner, launches, sum(wall_ms[1:3]) / 2 if len(wall_ms) >= 3 else wall_ms[-1],
-            its, peak)
+          f"(build {t_build:.1f} s); {rate:.1f} env-steps/s over iterations "
+          f"{first}-{len(wall_ms) - 1} (host clock, synchronised, start to end); launches "
+          f"{launches}; collectives {n_coll} all-reduces, {coll_ms:.1f} ms of events "
+          f"({100 * coll_ms / sum(wall_ms):.2f}% of the iterations' host time); peak device "
+          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated) on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    if probe_steps:
+        step_stage = "env" if "env" in its[0] else "rollout"
+        print(f"{label}: the env step alone (zero actions, no trainer) {step_before:.1f} ms "
+              f"before training, {step_after:.1f} ms after; the rollout's {step_stage} stage a "
+              "step " + ", ".join(f"{it[step_stage] / T:.1f}" for it in its) + " ms", flush=True)
+    return dict(runner=runner, launches=launches, it_ms=it_ms, its=its, wall_ms=wall_ms,
+                metrics=metrics, peak=peak, rate=rate, build_s=t_build, collectives=n_coll,
+                collective_ms=coll_ms)
 
 
 def _log_root():
@@ -1079,10 +1144,11 @@ def phase_train(num_envs, iters):
 
     root = _log_root()
     try:
-        runner, launches, it_ms, _, _ = timed_training(
+        res = timed_training(
             "BBC train", train_bbc,
             ["--task", "go2_locomotion", "--num_envs", str(num_envs), "--max_iterations",
              str(iters), "--device", "cuda", "--log_root", root, "--log_every", "1"], num_envs)
+        runner, launches, it_ms = res["runner"], res["launches"], res["it_ms"]
         T = runner.cfg.num_steps_per_env
         m = metrics_to_host(runner.last_metrics)
         ts = runner.train_state
@@ -1258,12 +1324,13 @@ def phase_tsc_train(num_envs, iters):
 
     root = _log_root()
     try:
-        runner, launches, it_ms, _, _ = timed_training(
+        res = timed_training(
             "TSC train", train_tsc,
             ["--num_envs", str(num_envs), "--courses", "64", "--bbc_path", TSC_BBC,
              "--randomize_start", "--randomize_base_mass", "--randomize_base_com",
              "--push_robots", "--max_iterations", str(iters), "--device", "cuda",
              "--log_root", root, "--log_every", "1"], num_envs)
+        runner, launches, it_ms = res["runner"], res["launches"], res["it_ms"]
         T = runner.cfg.num_steps_per_env
         m = metrics_to_host(runner.last_metrics)
         ts = runner.train_state
@@ -1296,6 +1363,340 @@ def phase_tsc_train(num_envs, iters):
         train_busy_share("TSC train", teacher_iteration(runner), it_ms)
         return launches
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ddp_ranks(bbc_cfg, tsc_cfg, algo_kw, bbc_path, inputs=None):
+    """The DDP parity phase's work on cuda:0 (tests/torch_dist_cases.py), on
+    this process's envs: a BBC env step, two TSC env steps, a BBC train
+    iteration and a TSC teacher iteration (under the frozen BBC of
+    `bbc_path`) with the "full" trainer kwargs, and for each {name: (BBC
+    kwargs, TSC kwargs)} of `algo_kw` both trainers' update stages on one
+    rollout: the one made here when `inputs` is None (returned as the
+    second value), else the rollouts in `inputs`."""
+    import torch_dist_cases as cases
+
+    full_b, full_t = algo_kw["full"]
+    out = dict(bbc_step=cases.bbc_env_step("cuda", bbc_cfg),
+               tsc_steps=cases.tsc_env_steps(2, "cuda", tsc_cfg),
+               bbc=cases.bbc_iteration("cuda", 0, bbc_cfg, full_b),
+               tsc=cases.tsc_iteration("cuda", 0, tsc_cfg, full_t, bbc_path))
+    made = {}
+    for name, (bkw, tkw) in algo_kw.items():
+        for net, cfg, kw in (("bbc", bbc_cfg, bkw), ("tsc", tsc_cfg, tkw)):
+            key = f"{net} {name}"
+            out[key], made[key] = cases.stages("cuda", cfg, kw, bbc_path,
+                                               None if inputs is None else inputs[key])
+    return out, (made if inputs is None else None)
+
+
+def _param_excess(got, want):
+    """(max |got - want|, max of |got - want| - (atol + rtol |want|)) of two
+    flat parameter vectors, DDP_TOL's rtol and atol."""
+    d = (got - want).abs()
+    return float(d.max()), float((d - DDP_TOL["atol"] - DDP_TOL["rtol"] * want.abs()).max())
+
+
+def phase_ddp_parity(num_envs=DDP_ENVS, courses=8, steps=8):
+    """dist/mesh.py on the card: two gloo ranks on cuda:0 (NCCL refuses two
+    ranks on one device), spawned by mesh.launch, each run on their half of
+    the envs what ddp_ranks runs; the same in this process without a group
+    is the 1-rank run.  The configs: the rough go2_locomotion config at
+    `num_envs` global envs (T = `steps`, observation noise and pushes on),
+    and the go2 config at `num_envs` x `courses` (the teacher flags, the
+    curriculum on; the TSC env steps start with a quarter of the envs
+    finishing their course and the curriculum due), the frozen bbc_final;
+    trainer sizes "full" (train parity's AlgoCfg / TscAlgoCfg: 5 epochs x 4
+    minibatches, the BBC's 80 disc minibatches) and "test_dist"
+    (tests/test_dist.py's 1 epoch x 2 minibatches).  Gates,
+    tests/test_dist.py's (DDP_TOL): the env steps' obs, rewards and base
+    positions within 1e-5 and the TSC success EMAs and curriculum count
+    equal; the full iterations' rollout/r_total within 1e-4 relative and
+    K1 and K2 (and K3 on the TSC) launched in each rank; the update stages
+    on the 1-rank run's rollout at the test_dist size (GAE's advantages
+    within 1e-5, then every network's parameters after PPO, the disc
+    update and DAgger within 1e-3 relative + 1e-4); the ranks' parameters
+    bit-identical everywhere.  Printed as readings: the full iterations'
+    parameters and end states (there the two runs' rollouts differ
+    already: a matrix product rounds differently at another batch size,
+    and a discrete mode or a contact flips on it) and the full-size
+    stages' parameters (20 Adam steps a minibatch pass move a parameter
+    whose gradient is near zero by up to the learning rate a step, so the
+    rounding of a sum split in two can reach 2e-4 after TSC DAgger's 20)."""
+    from agility_tpu_torch.cli import registry
+    from agility_tpu_torch.dist import mesh
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    bcfg = registry.apply_overrides(registry.get("go2_locomotion")[0](),
+                                    **{"env.num_envs": num_envs})
+    bkw = dict(num_steps_per_env=steps, num_preload_transitions=20_000,
+               disc_replay_buffer_size=4 * steps * num_envs)
+    small = dict(num_learning_epochs=1, num_mini_batches=2)
+    algo_kw = {"full": (bkw, dict(num_steps_per_env=steps)),
+               "test_dist": ({**bkw, **small}, dict(num_steps_per_env=steps, **small))}
+    tcfg = registry.apply_overrides(registry.get("go2")[0](), **{
+        "env.num_envs": num_envs, "obstacle.courses": courses, "env.randomize_start": True,
+        "domain_rand.randomize_base_mass": True, "domain_rand.randomize_base_com": True,
+        "obstacle.curriculum": True})
+    t0 = time.perf_counter()
+    one, inputs = ddp_ranks(bcfg, tcfg, algo_kw, TSC_BBC)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = [r[0] for r in mesh.launch(ddp_ranks, 2, args=(bcfg, tcfg, algo_kw, TSC_BBC, inputs),
+                                     backend="gloo", device="cuda", timeout_s=600.0)]
+    t_two = time.perf_counter() - t0
+    bad = []
+    cat = lambda parts, k, dim=0: torch.cat([q[k] for q in parts], dim)
+
+    steps_out = [("BBC step 0", one["bbc_step"], [q["bbc_step"] for q in two])]
+    steps_out += [(f"TSC step {t}", one["tsc_steps"][t], [q["tsc_steps"][t] for q in two])
+                  for t in range(len(one["tsc_steps"]))]
+    for label, ref, parts in steps_out:
+        err = {k: float((cat(parts, k) - ref[k]).abs().max()) for k in ("obs", "rew", "base_pos")}
+        line = f"DDP parity {label}: 2 ranks vs one process, max abs " + ", ".join(
+            f"{k} {v:.3e}" for k, v in err.items()) + f" (tol {DDP_TOL['state']:g})"
+        if "success_rate" in ref:
+            emas = [tuple(q[k] for k in ("success_rate", "success_rate_s0", "goal_progress",
+                                         "curr_count")) for q in (*parts, ref)]
+            line += (f"; resets {int(ref['reset'].sum())}, success EMAs, goal progress and "
+                     f"curriculum count (rank 0, rank 1, one process) {emas}")
+            if len(set(emas)) != 1:
+                bad.append(f"{label}: the success EMAs or the curriculum count differ")
+        print(line, flush=True)
+        if not all(v <= DDP_TOL["state"] for v in err.values()):
+            bad.append(f"{label}: 2 ranks disagree with one process")
+
+    for label, kernels in (("bbc", ("contact_lcp", "terrain_window")),
+                           ("tsc", ("contact_lcp", "terrain_window", "scandots"))):
+        ref, parts = one[label], [q[label] for q in two]
+        same = all(torch.equal(parts[0]["groups"][k], parts[1]["groups"][k])
+                   for k in ref["groups"])
+        perr = {k: _param_excess(parts[0]["groups"][k], w) for k, w in ref["groups"].items()}
+        r_a, r_b = parts[0]["metrics"]["rollout/r_total"], ref["metrics"]["rollout/r_total"]
+        r_err = abs(r_a - r_b) / max(abs(r_b), 1e-30)
+        s_err = {k: float((cat([q["sim"] for q in parts], k) - ref["sim"][k]).abs().max())
+                 for k in ("base_pos", "base_quat", "dof_pos", "u")}
+        launched = [q["launches"] for q in parts]
+        emas = ([(q["success_rate"], q["curr_count"]) for q in (*parts, ref)]
+                if label == "tsc" else [])
+        print(f"DDP parity {label} iteration (full): {num_envs} envs x {steps} steps, the "
+              f"ranks' parameters bit-identical {same}; vs one process: rollout/r_total "
+              f"{r_a:.7g} vs {r_b:.7g}, rel {r_err:.3e} (tol {DDP_TOL['r_total']:g}); readings: "
+              "parameters max abs diff (excess over 1e-4 + 1e-3 |p|) "
+              + ", ".join(f"{k} {m:.3e} ({e:.3e})" for k, (m, e) in perr.items())
+              + "; end states after the rollout max abs "
+              + ", ".join(f"{k} {v:.3e}" for k, v in s_err.items())
+              + f"; launches per rank {launched}" + (f"; success EMA, curriculum count {emas}"
+                                                     if emas else ""), flush=True)
+        if len(set(emas)) > 1:
+            bad.append(f"{label} iteration: success EMA or curriculum count differ")
+        if not same:
+            bad.append(f"{label} iteration: the ranks' parameters differ")
+        if r_err > DDP_TOL["r_total"]:
+            bad.append(f"{label} iteration: rollout/r_total of 2 ranks differs from one process's")
+        if not all(q[k] > 0 for q in launched for k in kernels):
+            bad.append(f"{label} iteration: a rank launched no {kernels}")
+
+    for key in (f"{net} {name}" for name in algo_kw for net in ("bbc", "tsc")):
+        ref, parts = one[key], [q[key] for q in two]
+        adv = float((cat(parts, "adv", 1) - ref["adv"]).abs().max())
+        gated = key.endswith("test_dist")
+        cells, ok = [], adv <= DDP_TOL["state"]
+        for stage, groups in ref["after"].items():
+            for net, want in groups.items():
+                got = [q["after"][stage][net] for q in parts]
+                m, e = _param_excess(got[0], want)
+                same = torch.equal(got[0], got[1])
+                ok &= same and (e <= 0 or not gated)
+                cells.append(f"{stage}/{net} {m:.3e} ({e:.3e}){'' if same else ' ranks differ'}")
+        print(f"DDP parity {key} stages on the one-process rollout: advantages max abs "
+              f"{adv:.3e} (tol {DDP_TOL['state']:g}); parameters after each stage, max abs diff "
+              "(excess over 1e-4 + 1e-3 |p|; ranks bit-identical unless said) "
+              + ", ".join(cells) + ("" if gated else " (a reading)"), flush=True)
+        if not ok:
+            bad.append(f"{key} stages: 2 ranks disagree with one process")
+    print(f"DDP parity: one process {t_one:.1f} s, 2 ranks {t_two:.1f} s (spawn, build, every "
+          "case)", flush=True)
+    if bad:
+        raise SystemExit("DDP parity: " + "; ".join(bad))
+
+
+def env_steps(runner, steps):
+    """`steps` control steps of the runner's env with zero actions, on a
+    copy of its state (a callable)."""
+    def run():
+        z = torch.zeros(runner.env.num_envs, 12, device=runner.env.device)
+        s = runner.env_state
+        with torch.no_grad():
+            for _ in range(steps):
+                s, _ = runner.env.step(s, z)
+    return run
+
+
+def big_training(label, cli, argv):
+    """`cli`'s build and train for the 32k task of `argv` (with --shard) in
+    a one-rank NCCL group on the card, timed as the train phases; the env
+    step's busy share (two steps profiled against two unprofiled).  Returns
+    timed_training's dict; the caller closes the group."""
+    import torch.distributed as dist
+
+    res = timed_training(label, cli, argv, BIG_ENVS, probe_steps=0)
+    runner = res["runner"]
+    shard = runner.env.shard
+    print(f"{label}: process group {dist.get_backend()}, world {dist.get_world_size()}, "
+          f"{shard}; {res['collectives']} all-reduces in training, "
+          f"{res['collective_ms']:.1f} ms", flush=True)
+    if dist.get_backend() != "nccl" or shard is None or shard.num_envs != BIG_ENVS:
+        raise SystemExit(f"{label}: not a one-rank NCCL group over {BIG_ENVS} envs")
+    if res["collectives"] == 0:
+        raise SystemExit(f"{label}: the sharded run made no collective")
+    step_ms = env_step_ms(runner, 2)
+    res["step_ms"] = step_ms
+    res["busy"] = train_busy_share(f"{label} env step", env_steps(runner, 2), 2 * step_ms,
+                                   what="two env steps (zero actions)")
+    return res
+
+
+def _state_reads_back(runner, label):
+    """The exact-resume state file beside the newest slim checkpoint holds
+    the runner's iteration, its env positions and (BBC) its ring."""
+    from agility_tpu_torch.io import checkpoint as ckpt
+
+    path = ckpt.latest(runner.log_dir)
+    saved = torch.load(ckpt.state_path(path), map_location="cpu")
+    same = (saved["iteration"] == runner.current_iteration
+            and torch.equal(saved["env_state"]["sim"]["base_pos"],
+                            runner.env_state.sim.base_pos.cpu()))
+    if "ring" in saved:
+        same &= torch.equal(saved["ring"]["data"], runner.train_state.ring.data.cpu())
+    print(f"{label}: exact-resume state {os.path.basename(ckpt.state_path(path))} "
+          f"({os.path.getsize(ckpt.state_path(path)) / 2**20:.1f} MiB) read back equal {same}",
+          flush=True)
+    if not same:
+        raise SystemExit(f"{label}: the exact-resume state does not read back equal")
+
+
+def phase_train_32k(iters=1):
+    """cli/train_bbc --task go2_locomotion_32k --shard (32768 envs on the
+    8 x 8 terrain, the full AlgoCfg) in a one-rank NCCL group for `iters`
+    iteration(s); then K1 and K2 against their plain versions on its env
+    at that width.  Returns (launches, K1 rows, K2 rows)."""
+    from agility_tpu_torch.cli import train_bbc
+    from agility_tpu_torch.dist import mesh
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.learn.policy import build_policy
+    from agility_tpu_torch.learn.ssinfogail import metrics_to_host
+
+    label = "BBC train 32k"
+    root = _log_root()
+    try:
+        res = big_training(label, train_bbc, [
+            "--task", "go2_locomotion_32k", "--shard", "--max_iterations", str(iters),
+            "--device", "cuda", "--log_root", root, "--log_every", "1"])
+        runner, launches = res["runner"], res["launches"]
+        env, ts = runner.env, runner.train_state
+        T = runner.cfg.num_steps_per_env
+        m = metrics_to_host(runner.last_metrics)
+        finite = all(bool(torch.isfinite(p).all()) for k in ("ac", "est", "disc")
+                     for p in getattr(ts, k).parameters()) and all(map(np.isfinite, m.values()))
+        print(f"{label}: ring {ts.ring.size} rows of {ts.ring.capacity} "
+              f"({ts.ring.data.numel() * 4 / 2**20:.1f} MiB); metrics {json.dumps(m)}",
+              flush=True)
+        path = ckpt.latest(runner.log_dir)
+        policy = build_policy(env.cfg, ckpt.params_from_jax(ckpt.read_msgpack(path)), "cuda")
+        same = all(torch.equal(a, b) for mine, back in ((ts.ac, policy.ac), (ts.est, policy.est))
+                   for a, b in zip(mine.state_dict().values(), back.state_dict().values()))
+        print(f"{label}: slim checkpoint {os.path.basename(path)} read back equal {same}",
+              flush=True)
+        _state_reads_back(runner, label)
+        want = dict(contact_lcp=env.engine_cfg.decimation * T * iters,
+                    terrain_window=T * iters, scandots=0)
+        if launches != want:
+            raise SystemExit(f"{label}: launches {launches}, want {want}")
+        if not finite:
+            raise SystemExit(f"{label}: a parameter or metric is not finite")
+        if ts.ring.size != iters * T * BIG_ENVS or ts.ring.capacity != 983_040:
+            raise SystemExit(f"{label}: the ring holds the wrong number of rows")
+        if not same:
+            raise SystemExit(f"{label}: the slim checkpoint does not read back equal")
+        sim = runner.env_state.sim
+        k1 = phase_k1([("bbc_32k", env, sim, env.params)])
+        k2 = phase_k2([bbc_window_case("bbc_32k", env, sim, env.params)])
+        return launches, k1, k2
+    finally:
+        mesh.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tsc_train_32k(iters=1):
+    """cli/train_tsc --task go2_32k --shard (32768 envs on 256 courses, the
+    teacher flags, the frozen bbc_final, the full TscAlgoCfg) in a one-rank
+    NCCL group for `iters` iteration(s), the world's generation timed; then
+    K1, K2 and K3 against their plain versions on its world at that width.
+    Returns (launches, K1 rows, K2 rows, K3 rows)."""
+    from agility_tpu_torch.cli import train_tsc
+    from agility_tpu_torch.dist import mesh
+    from agility_tpu_torch.io import checkpoint as ckpt
+    from agility_tpu_torch.learn.ssinfogail import metrics_to_host
+    from agility_tpu_torch.terrain import obstacle
+
+    label = "TSC train 32k"
+    root = _log_root()
+    generate, world_s = obstacle.generate, []
+
+    def timed_generate(*a, **kw):
+        t0 = time.perf_counter()
+        out = generate(*a, **kw)
+        world_s.append(time.perf_counter() - t0)
+        return out
+
+    obstacle.generate = timed_generate
+    try:
+        res = big_training(label, train_tsc, [
+            "--task", "go2_32k", "--shard", "--bbc_path", TSC_BBC, "--randomize_start",
+            "--randomize_base_mass", "--randomize_base_com", "--push_robots",
+            "--max_iterations", str(iters), "--device", "cuda", "--log_root", root,
+            "--log_every", "1"])
+        obstacle.generate = generate
+        runner, launches = res["runner"], res["launches"]
+        env, ts = runner.env, runner.train_state
+        T = runner.cfg.num_steps_per_env
+        m = metrics_to_host(runner.last_metrics)
+        finite = all(bool(torch.isfinite(p).all()) for k in ("ac", "est")
+                     for p in getattr(ts, k).parameters()) and all(map(np.isfinite, m.values()))
+        std_min = float(ts.ac.std.detach().min())
+        print(f"{label}: the 256-course world ({tuple(env.grid.height.shape)} cells) generated "
+              f"in {sum(world_s):.2f} s of the {res['build_s']:.1f} s build; priv_reg_counter "
+              f"{ts.priv_reg_counter}, std min {std_min:.4f}; success rate "
+              f"{float(runner.env_state.success_rate):.4f}; metrics {json.dumps(m)}", flush=True)
+        path = ckpt.latest(runner.log_dir)
+        back = ckpt.params_from_jax_tsc(ckpt.read_msgpack(path))
+        same = all(torch.equal(v.cpu(), back[name][k]) for name, mod in (
+            ("actor_critic", ts.ac), ("estimator", ts.est)) for k, v in mod.state_dict().items())
+        print(f"{label}: slim checkpoint {os.path.basename(path)} read back equal {same}",
+              flush=True)
+        _state_reads_back(runner, label)
+        want = dict(contact_lcp=env.engine_cfg.decimation * T * iters,
+                    terrain_window=T * iters, scandots=T * iters)
+        if launches != want:
+            raise SystemExit(f"{label}: launches {launches}, want {want}")
+        if not finite:
+            raise SystemExit(f"{label}: a parameter or metric is not finite")
+        if ts.priv_reg_counter != iters + 1 or not std_min >= np.float32(runner.cfg.min_std):
+            raise SystemExit(f"{label}: priv_reg_counter {ts.priv_reg_counter} or std min "
+                             f"{std_min} off")
+        if not same:
+            raise SystemExit(f"{label}: the slim checkpoint does not read back equal")
+        s = press_into_roof(env, runner.env_state, 64)
+        k1 = phase_k1([("tsc_32k", env, s.sim,
+                        env.base_params._replace(hf_weights=env._weights(s)))])
+        grid, c, w, sc, px, py = course_case(BIG_ENVS, env=env)
+        k2 = phase_k2([("tsc_32k", grid, c, 32, w)])
+        k3 = phase_k3([("tsc_32k", (grid, sc, 34, w, px, py))])
+        return launches, k1, k2, k3
+    finally:
+        obstacle.generate = generate
+        mesh.close()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1432,11 +1833,13 @@ def phase_vision_train(root, iters):
 
     link_teacher(root)
     label = "TSC vision train"
-    runner, launches, it_ms, its, peak = timed_training(
+    res = timed_training(
         label, train_tsc,
         ["--use_camera", "--courses", "64", "--bbc_path", TSC_BBC, "--log_root", root,
          "--proj_name", "agility", "--resumeid", "r5", "--exptid", "vis", "--max_iterations",
          str(iters), "--device", "cuda", "--log_every", "1"], VISION_ENVS)
+    runner, launches, it_ms, its, peak = (res[k] for k in ("runner", "launches", "it_ms", "its",
+                                                           "peak"))
     alg, ts = runner.alg, runner.train_state
     if runner.env.num_envs != VISION_ENVS:
         raise SystemExit(f"{label}: {runner.env.num_envs} envs, not camera_num_envs")
@@ -1541,7 +1944,7 @@ def teacher_iteration(runner):
     return run
 
 
-def train_busy_share(label, one_iteration, it_ms):
+def train_busy_share(label, one_iteration, it_ms, what="one iteration"):
     """Device ops and busy time (the union of kernel, copy and fill
     intervals) of one more train iteration (`one_iteration()`) under
     torch.profiler, against the unprofiled iteration time.  A reading, not
@@ -1561,9 +1964,9 @@ def train_busy_share(label, one_iteration, it_ms):
         ends = np.maximum.accumulate(spans[:, 1])
         gaps = np.maximum(spans[1:, 0] - ends[:-1], 0)
         busy = int(ends[-1] - spans[0, 0] - gaps.sum())
-    print(f"{label} profile: one iteration (profiled {wall:.1f} ms): {len(spans)} device ops, "
+    print(f"{label} profile: {what} (profiled {wall:.1f} ms): {len(spans)} device ops, "
           f"device busy {busy / 1e6:.2f} ms, {100 * busy / 1e6 / it_ms:.1f}% of the unprofiled "
-          f"{it_ms:.1f} ms iteration", flush=True)
+          f"{it_ms:.1f} ms", flush=True)
     return busy / 1e6 / it_ms
 
 
@@ -1603,7 +2006,9 @@ def main():
         for name, phase in (
                 ("K1", lambda: phase_k1([("bbc", *bbc), ("tsc", *tsc_case()),
                                          ("tsc_vision", *tsc_case(VISION_ENVS))])),
-                ("K2", lambda: phase_k2(bbc)), ("K3", phase_k3),
+                ("K2", lambda: phase_k2(k2_cases(bbc))),
+                ("K3", lambda: phase_k3([("tsc", k3_case(TSC_ENVS)),
+                                         ("tsc_vision", k3_case(VISION_ENVS))])),
                 ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
                 ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
                 ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS, tmp_root)),
@@ -1612,20 +2017,27 @@ def main():
                 ("BBC mocap", lambda: phase_bbc_mocap(NUM_ENVS, tmp_root)),
                 ("export", lambda: phase_export(tmp_root, bbc)),
                 ("TSC train parity", phase_tsc_train_parity),
+                ("DDP parity", phase_ddp_parity),
                 ("TSC train", lambda: phase_tsc_train(TSC_ENVS, TRAIN_ITERS)),
                 ("vision parity", phase_vision_parity),
                 ("vision train", lambda: phase_vision_train(tmp_root, TRAIN_ITERS)),
                 ("vision play", lambda: phase_vision_play(VISION_ENVS, VISION_STEPS,
-                                                          rows["vision train"][1]))):
+                                                          rows["vision train"][1])),
+                ("BBC train 32k", phase_train_32k), ("TSC train 32k", phase_tsc_train_32k)):
             rows[name] = phase()
             print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
 
+    # the kernels at the 32k shapes, checked in the 32k phases
+    for phase in ("BBC train 32k", "TSC train 32k"):
+        for k, r in zip(("K1", "K2", "K3"), rows[phase][1:]):
+            rows[k].update(r)
     paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"],
                  bbc_train=rows["BBC train"], bbc_mocap_train=rows["BBC mocap"],
                  tsc_train=rows["TSC train"],
-                 tsc_vision_train=rows["vision train"][0], tsc_vision_play=rows["vision play"])
+                 tsc_vision_train=rows["vision train"][0], tsc_vision_play=rows["vision play"],
+                 bbc_train_32k=rows["BBC train 32k"][0], tsc_train_32k=rows["TSC train 32k"][0])
     keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share")
     kernels = []
     # each kernel's headline numbers are those of its first shape: K1 at the

@@ -37,7 +37,8 @@ from agility_tpu_torch.terrain import obstacle as tobst
 
 # the port's task names -> the JAX registry's ("go2" is the TSC task there)
 TASKS = {"go2_locomotion": "go2_locomotion", "go2_locomotion_smoke": "go2_locomotion_smoke",
-         "go2_agility": "go2", "go2": "go2"}
+         "go2_locomotion_32k": "go2_locomotion_32k", "go2_agility": "go2", "go2": "go2",
+         "go2_32k": "go2_32k"}
 
 
 def _dataclasses(mod):
@@ -63,7 +64,8 @@ def test_algo_cfg_equal():
         assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
         assert dataclasses.asdict(t()) == dataclasses.asdict(j())
     for task, kind in (("go2_locomotion", tgail.AlgoCfg), ("go2_locomotion_smoke", tgail.AlgoCfg),
-                       ("go2", tppo.TscAlgoCfg), ("go2_agility", tppo.TscAlgoCfg)):
+                       ("go2_locomotion_32k", tgail.AlgoCfg), ("go2", tppo.TscAlgoCfg),
+                       ("go2_agility", tppo.TscAlgoCfg), ("go2_32k", tppo.TscAlgoCfg)):
         got, want = treg.get(task)[1](), jreg.get(TASKS[task])[1]()
         assert type(got) is kind
         assert dataclasses.asdict(got) == dataclasses.asdict(want)

@@ -260,3 +260,30 @@ def test_mocap_load_dir_on_card_matches_cpu(card, tmp_path):
     for k, v in cpu._asdict().items():
         if isinstance(v, torch.Tensor):
             assert torch.equal(getattr(gpu, k).cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_match_one(card):
+    """dist/mesh.py on the card: two gloo ranks on cuda:0 (NCCL refuses two
+    ranks on one device) each run one BBC and one TSC teacher iteration of
+    16 envs on their 8 (tests/torch_dist_cases.py), launching the kernels;
+    the ranks' parameters are bit-identical and within tests/test_dist.py's
+    1e-3 / 1e-4 of the same iterations in this process without a group,
+    rollout/r_total within 1e-4."""
+    import numpy as np
+
+    import torch_dist_cases as cases
+    from agility_tpu_torch.dist import mesh
+
+    for case, launched in ((cases.bbc_iteration, ("contact_lcp", "terrain_window")),
+                           (cases.tsc_iteration, ("contact_lcp", "terrain_window", "scandots"))):
+        one = case("cuda")
+        two = mesh.launch(case, 2, args=("cuda",), backend="gloo", device="cuda",
+                          timeout_s=300.0)
+        assert torch.equal(two[0]["params"], two[1]["params"])
+        np.testing.assert_allclose(two[0]["params"].numpy(), one["params"].numpy(), rtol=1e-3,
+                                   atol=1e-4)
+        np.testing.assert_allclose(two[0]["metrics"]["rollout/r_total"],
+                                   one["metrics"]["rollout/r_total"], rtol=1e-4)
+        for part in two:
+            assert all(part["launches"][k] > 0 for k in launched), part["launches"]

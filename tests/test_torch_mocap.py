@@ -198,7 +198,7 @@ def test_env_reset_from_loaded_clips(clip_root, rng):
             return self._frames_at(jnp.asarray(clip), jnp.asarray(t))
 
     class TFixed(tmocap.MotionData):
-        def sample_frames(self, gen, c_idx, dt, disc_obs_len=2):
+        def sample_frames(self, gen, c_idx, dt, disc_obs_len=2, shard=None):
             return self.frames_at(torch.as_tensor(clip).long(), torch.as_tensor(t))
 
     je.motion, te.motion = JFixed(*je.motion), TFixed(*te.motion)

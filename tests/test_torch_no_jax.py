@@ -1,6 +1,6 @@
 """The port runs where jax, flax and optax are not installed, and without
 the JAX package: a fresh interpreter with jax, flax, optax and agility_tpu
-blocked imports every module of agility_tpu_torch, chip_smoke.py,
+blocked imports every module of agility_tpu_torch, chip_smoke.py, multi_card.py,
 kernel_bench.py and profile_slice.py, then takes two env steps of 2 envs on
 the CPU; a second one plays two hierarchical TSC steps of 2 envs on a
 2-course world; a third trains the BBC for two iterations of 8 envs through
@@ -12,7 +12,10 @@ one iteration of 4 envs on 2 courses through cli/train_tsc --use_camera
 --use_camera from the checkpoint it wrote; a sixth plays the BBC through
 cli/play_bbc --compare_gait; a seventh trains the BBC for one iteration
 of 4 envs through cli/train_bbc --mocap_dir on clip files written in the
-reference's layout."""
+reference's layout; an eighth trains the BBC for one iteration of 8 envs
+split over two gloo ranks that torch.distributed.run starts, through
+cli/train_bbc --shard, with the modules blocked in every rank by a
+sitecustomize on the ranks' path."""
 import os
 import subprocess
 import sys
@@ -29,7 +32,7 @@ SCRIPT = textwrap.dedent("""
     import agility_tpu_torch
     for m in pkgutil.walk_packages(agility_tpu_torch.__path__, "agility_tpu_torch."):
         importlib.import_module(m.name)
-    import chip_smoke, kernel_bench, profile_slice
+    import chip_smoke, kernel_bench, multi_card, profile_slice
     from agility_tpu_torch.envs.config import Go2LocomotionCfg, EnvCfg
     from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
     from agility_tpu_torch.learn.policy import build_policy
@@ -191,6 +194,13 @@ MOCAP_TRAIN_SCRIPT = textwrap.dedent("""
 """)
 
 
+BLOCK_SITE = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
+""")
+
+
 def _run(script):
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")]))}
@@ -226,3 +236,26 @@ def test_bbc_play_compare_gait_without_jax():
 
 def test_bbc_train_mocap_dir_without_jax():
     _run(MOCAP_TRAIN_SCRIPT)
+
+
+def test_bbc_train_shard_two_ranks_without_jax(tmp_path):
+    """torch.distributed.run --nproc_per_node 2 of cli/train_bbc --shard on
+    the CPU (gloo): rank 0 reports the split and writes the checkpoints."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(BLOCK_SITE)
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join(filter(None, [str(site), ROOT,
+                                                       os.environ.get("PYTHONPATH")]))}
+    logs = tmp_path / "logs"
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "-m", "agility_tpu_torch.cli.train_bbc", "--device", "cpu", "--task",
+         "go2_locomotion_smoke", "--num_envs", "8", "--max_iterations", "1", "--shard",
+         "--log_root", str(logs)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "env-sharded over 2 rank(s), gloo; rank 0 holds envs [0, 4) of 8" in res.stdout
+    assert res.stdout.count("trained 1 iters") == 1          # rank 0 alone prints
+    run_dir = logs / "go2_locomotion_smoke" / "0"
+    assert {"model_1.msgpack", "state_1.pt"} <= set(os.listdir(run_dir))
