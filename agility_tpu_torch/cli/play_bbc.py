@@ -78,11 +78,13 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def build(args):
+def build(args, overrides=None):
     """The play env (noise and domain randomization off; one mode, or all
     with --interactive), the policy and the held command: returns (env,
     policy, device, hold), where hold(state) sets the command and behaviour
-    mode before each control step."""
+    mode before each control step.  `overrides` are further dotted-key
+    config overrides (registry.apply_overrides), e.g. {"sim.solver": "soft"}
+    for another contact model."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
@@ -100,6 +102,7 @@ def build(args):
                 "domain_rand.randomize_base_mass": False,
                 "domain_rand.randomize_base_com": False,
                 "domain_rand.randomize_motor": False, "domain_rand.action_delay": False})
+    cfg = registry.apply_overrides(cfg, **(overrides or {}))
     env = Go2LocomotionEnv(cfg, device, seed=0)
     path = args.checkpoint or ckpt.latest(
         os.path.join(args.log_root, args.task, str(args.experiment_idx)))
@@ -140,13 +143,14 @@ def compare_gait(args, env, contact):
     return stats, bands, verdict
 
 
-def run(args) -> dict:
-    """Build the env and policy, roll `args.steps` control steps and print
-    the statistics (and, with --compare_gait or --gait_bands, the gait
-    report).  Returns the env, the final LocoState, env-steps/s, the number
-    of physics substeps run, the trajectory (numpy, (steps, N, ...)) and
-    the gait comparison (stats, bands, verdict) or None."""
-    env, policy, device, hold = build(args)
+def run(args, overrides=None) -> dict:
+    """Build the env and policy (`overrides` as in `build`), roll
+    `args.steps` control steps and print the statistics (and, with
+    --compare_gait or --gait_bands, the gait report).  Returns the env, the
+    policy and the command hold, the final LocoState, env-steps/s, the
+    number of physics substeps run, the trajectory (numpy, (steps, N, ...))
+    and the gait comparison (stats, bands, verdict) or None."""
+    env, policy, device, hold = build(args, overrides)
     N = args.num_envs
     state = env.init_state()
     if args.interactive:
@@ -185,7 +189,7 @@ def run(args) -> dict:
     compared = (compare_gait(args, env, traj["contact"])
                 if args.compare_gait or args.gait_bands else None)
     # substeps include init_state's zero-action step
-    return dict(env=env, state=state, env_steps_per_s=steps_per_s,
+    return dict(env=env, policy=policy, hold=hold, state=state, env_steps_per_s=steps_per_s,
                 substeps=(args.steps + 1) * env.engine_cfg.decimation, traj=traj,
                 gait=compared)
 

@@ -87,3 +87,15 @@ def merge_inertia(m1, com1, I1, m2, com2, I2):
         return I + mi * (np.dot(d, d) * np.eye(3) - np.outer(d, d))
 
     return m, com, shift(I1, m1, com1) + shift(I2, m2, com2)
+
+
+def rpy_to_mat(rpy: np.ndarray) -> np.ndarray:
+    """URDF fixed-axis rpy -> rotation matrix (R = Rz(y) @ Ry(p) @ Rx(r))."""
+    r, p, y = rpy
+    cr, sr = np.cos(r), np.sin(r)
+    cp, sp = np.cos(p), np.sin(p)
+    cy, sy = np.cos(y), np.sin(y)
+    Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+    Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+    return Rz @ Ry @ Rx

@@ -47,6 +47,36 @@ def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_rotate(quat_conjugate(q), v)
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (..., 3, 3) rotation matrix."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+                     2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+                     2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, dt) -> torch.Tensor:
+    """Integrate unit quaternions by world-frame angular velocity over dt with
+    the exponential map (exact for constant omega)."""
+    angle = torch.linalg.vector_norm(omega_world, dim=-1, keepdim=True)
+    axis = omega_world / torch.clamp(angle, min=_EPS)
+    half = 0.5 * angle * dt
+    dq = torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
+    return normalize(quat_mul(dq, q))
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) cross-product matrix [v]x."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
 def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Unit axis (..., 3), angle (...) -> quat (..., 4)."""
     half = 0.5 * angle

@@ -1,21 +1,24 @@
-"""Go2 model assembly from the distilled JSON asset (counterpart of
-agility_tpu/core/urdf.py, JSON path only).
+"""Go2 model assembly from a URDF or the distilled JSON asset (counterpart
+of agility_tpu/core/urdf.py).
 
 Fixed-joint subtrees are merged into their moving parent (composite
 inertia), except frames marked `dont_collapse` which stay as massless
-reported bodies.  The asset is the port's own `assets/go2_model.json`, a
-byte-for-byte copy of the JAX package's, so both packages build the same
-model.
+reported bodies.  A URDF is parsed into a `ParsedURDF` and serialised to
+the asset's plain-JSON schema (`parsed_to_json`); the model is built from
+that schema either way.  The asset is the port's own
+`assets/go2_model.json`, a byte-for-byte copy of the JAX package's, so both
+packages build the same model.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional
+import xml.etree.ElementTree as ET
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from agility_tpu_torch.core.model import CollisionSphere, RobotModel, merge_inertia
+from agility_tpu_torch.core.model import CollisionSphere, RobotModel, merge_inertia, rpy_to_mat
 
 GO2_DEFAULT_DOF_POS = {
     "FL_hip_joint": 0.0, "RL_hip_joint": 0.0, "FR_hip_joint": 0.0, "RR_hip_joint": 0.0,
@@ -27,6 +30,110 @@ GO2_DEFAULT_DOF_POS = {
 def default_asset_path() -> str:
     return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
                         "go2_model.json")
+
+
+def _vec(s: Optional[str], default="0 0 0") -> np.ndarray:
+    return np.array([float(x) for x in (s or default).split()])
+
+
+def _origin(el):
+    """(xyz, rotation matrix) of an element's <origin>, identity if absent."""
+    o = el.find("origin")
+    get = (lambda k: None) if o is None else o.get
+    return _vec(get("xyz")), rpy_to_mat(_vec(get("rpy")))
+
+
+class _Link:
+    """A URDF <link>: mass, COM and inertia about the COM in the link frame."""
+
+    def __init__(self, el):
+        self.name = el.get("name")
+        inertial = el.find("inertial")
+        if inertial is None:
+            self.mass, self.com, self.inertia = 0.0, np.zeros(3), np.zeros((3, 3))
+            return
+        self.mass = float(inertial.find("mass").get("value"))
+        self.com, rot = _origin(inertial)
+        I = inertial.find("inertia")
+        g = lambda k: float(I.get(k))
+        Ib = np.array([[g("ixx"), g("ixy"), g("ixz")], [g("ixy"), g("iyy"), g("iyz")],
+                       [g("ixz"), g("iyz"), g("izz")]])
+        self.inertia = rot @ Ib @ rot.T
+
+
+class _Joint:
+    """A URDF <joint>; `dont_collapse="true"` keeps a fixed child as a
+    reported body."""
+
+    def __init__(self, el):
+        self.name, self.type = el.get("name"), el.get("type")
+        self.parent = el.find("parent").get("link")
+        self.child = el.find("child").get("link")
+        self.xyz, self.rot = _origin(el)
+        ax = el.find("axis")
+        self.axis = _vec(ax.get("xyz")) if ax is not None else np.array([1.0, 0, 0])
+        lim = el.find("limit")
+        f = lambda k: float(lim.get(k, "0")) if lim is not None else 0.0
+        self.lower, self.upper, self.effort, self.velocity = (f("lower"), f("upper"),
+                                                              f("effort"), f("velocity"))
+        self.dont_collapse = el.get("dont_collapse") == "true"
+
+
+class ParsedURDF:
+    """Links by name and joints in file order; one root link."""
+
+    def __init__(self, links: Dict[str, _Link], joints: List[_Joint]):
+        self.links, self.joints = links, joints
+        self.children: Dict[str, List[_Joint]] = {}
+        for j in joints:
+            self.children.setdefault(j.parent, []).append(j)
+        roots = [n for n in links if n not in {j.child for j in joints}]
+        if len(roots) != 1:
+            raise ValueError(f"expected one root link, got {roots}")
+        self.root = roots[0]
+
+    def build_model(self, default_dof_pos: Optional[Dict[str, float]] = None) -> RobotModel:
+        """Collapse fixed joints into a RobotModel (no collision spheres)."""
+        return build_model(parsed_to_json(self), default_dof_pos)
+
+
+def load_urdf(path: str) -> ParsedURDF:
+    root = ET.parse(path).getroot()
+    links = {l.name: l for l in (_Link(el) for el in root.findall("link"))}
+    return ParsedURDF(links, [_Joint(el) for el in root.findall("joint")])
+
+
+def parsed_to_json(p: ParsedURDF) -> dict:
+    """A parsed robot description in the plain-JSON schema of the model asset
+    (tools/extract_go2.py writes it)."""
+    return {
+        "links": {n: {"mass": l.mass, "com": l.com.tolist(), "inertia": l.inertia.tolist()}
+                  for n, l in p.links.items()},
+        "joints": [{"name": j.name, "type": j.type, "parent": j.parent, "child": j.child,
+                    "xyz": j.xyz.tolist(), "rot": j.rot.tolist(), "axis": j.axis.tolist(),
+                    "lower": j.lower, "upper": j.upper, "effort": j.effort,
+                    "velocity": j.velocity, "dont_collapse": j.dont_collapse}
+                   for j in p.joints],
+    }
+
+
+def parsed_from_json(d: dict) -> ParsedURDF:
+    links = {}
+    for n, ld in d["links"].items():
+        l = _Link.__new__(_Link)
+        l.name, l.mass = n, float(ld["mass"])
+        l.com, l.inertia = np.array(ld["com"]), np.array(ld["inertia"])
+        links[n] = l
+    joints = []
+    for jd in d["joints"]:
+        j = _Joint.__new__(_Joint)
+        j.name, j.type, j.parent, j.child = jd["name"], jd["type"], jd["parent"], jd["child"]
+        j.xyz, j.rot, j.axis = np.array(jd["xyz"]), np.array(jd["rot"]), np.array(jd["axis"])
+        j.lower, j.upper, j.effort, j.velocity = (jd["lower"], jd["upper"], jd["effort"],
+                                                  jd["velocity"])
+        j.dont_collapse = jd["dont_collapse"]
+        joints.append(j)
+    return ParsedURDF(links, joints)
 
 
 def build_model(d: dict, default_dof_pos=None) -> RobotModel:
@@ -141,9 +248,16 @@ def _go2_collision_spheres(model: RobotModel) -> List[CollisionSphere]:
 
 def build_go2_model(source: Optional[str] = None) -> RobotModel:
     """The Go2 RobotModel: 13 moving links, 12 dofs, 17 reported bodies
-    (base, 4x hip/thigh/calf/foot), 24 collision spheres."""
-    with open(source or default_asset_path()) as f:
-        model = build_model(json.load(f), GO2_DEFAULT_DOF_POS)
+    (base, 4x hip/thigh/calf/foot), 24 collision spheres.  `source` is a
+    .urdf or a distilled .json model asset; by default the packaged
+    assets/go2_model.json."""
+    source = source or default_asset_path()
+    if source.endswith(".json"):
+        with open(source) as f:
+            d = json.load(f)
+    else:
+        d = parsed_to_json(load_urdf(source))
+    model = build_model(d, GO2_DEFAULT_DOF_POS)
     keep = [i for i, n in enumerate(model.body_names)
             if n == "base" or n[:3] in ("FL_", "FR_", "RL_", "RR_")]
     model.body_names = [model.body_names[i] for i in keep]

@@ -165,7 +165,7 @@ class Go2AgilityEnv:
             [list(cfg.env.mocap_category_all).index(c) for c in cfg.env.mocap_category],
             device=dev)
         self.engine_cfg = eng.EngineConfig(
-            dt=cfg.sim.dt, decimation=cfg.control.decimation,
+            dt=cfg.sim.dt, decimation=cfg.control.decimation, solver=cfg.sim.solver,
             jacobi_iters=cfg.sim.jacobi_iters, jacobi_relax=cfg.sim.jacobi_relax,
             warm_start=cfg.sim.warm_start, patch_size=32)   # 1.6 m at the 0.05 m course scale
         # per-env constants: drawn for all N global envs, the rank's rows kept

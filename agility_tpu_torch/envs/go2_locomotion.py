@@ -127,8 +127,9 @@ class Go2LocomotionEnv:
                              if self.num_mocap == 1 else -1)
         self.engine_cfg = eng.EngineConfig(
             dt=cfg.sim.dt, decimation=cfg.control.decimation, gravity=cfg.sim.gravity,
-            jacobi_iters=cfg.sim.jacobi_iters, jacobi_relax=cfg.sim.jacobi_relax,
-            warm_start=cfg.sim.warm_start, restitution=cfg.terrain.restitution)
+            solver=cfg.sim.solver, jacobi_iters=cfg.sim.jacobi_iters,
+            jacobi_relax=cfg.sim.jacobi_relax, warm_start=cfg.sim.warm_start,
+            restitution=cfg.terrain.restitution)
         f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         # per-env constants: drawn for all N global envs, the rank's rows kept
         f32e = lambda x: f32(shard.take(np.asarray(x)) if shard else x)

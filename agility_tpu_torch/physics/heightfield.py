@@ -28,6 +28,12 @@ class HeightGrid(NamedTuple):
     ceiling_layer: Optional[torch.Tensor] = None  # (H, W) int8
 
 
+def flat_grid(size: float = 1.0, device="cuda") -> HeightGrid:
+    """A flat plane: a degenerate 2 x 2 zero grid."""
+    return HeightGrid(height=torch.zeros((2, 2), device=device), hscale=float(size),
+                      origin=(-float(size), -float(size)))
+
+
 def from_numpy(height_m: np.ndarray, hscale: float, origin_xy=(0.0, 0.0),
                device="cuda", layer_id=None, lever=None, ceiling=None,
                ceiling_layer=None) -> HeightGrid:
@@ -87,10 +93,15 @@ def _cnode(g: HeightGrid, xi, yi, weights):
     return h
 
 
-def _bilinear(node, g: HeightGrid, x, y, weights):
+def _cell(g: HeightGrid, x, y):
+    """Integer node (x0, y0) of the cell under world (x, y) and the grid
+    coordinates (gx, gy)."""
     gx, gy = _grid_coords(g, x, y)
-    x0 = torch.floor(gx).long()
-    y0 = torch.floor(gy).long()
+    return torch.floor(gx).long(), torch.floor(gy).long(), gx, gy
+
+
+def _bilinear(node, g: HeightGrid, x, y, weights):
+    x0, y0, gx, gy = _cell(g, x, y)
     fx, fy = gx - x0, gy - y0
     return (node(g, x0, y0, weights) * (1 - fx) * (1 - fy)
             + node(g, x0 + 1, y0, weights) * fx * (1 - fy)
@@ -109,20 +120,41 @@ def sample_ceiling(g: HeightGrid, x, y, weights=None):
     return _bilinear(_cnode, g, x, y, weights)
 
 
+def sample_lever(g: HeightGrid, x, y):
+    """Bilinear raw seesaw lever arm [m] at world (x, y); requires g.lever
+    (the env turns foot normal forces into plank torque with it)."""
+    return _bilinear(lambda g, xi, yi, _: g.lever[xi, yi], g, x, y, None)
+
+
+def on_lever(g: HeightGrid, x, y):
+    """True where any of the 4 surrounding nodes is a seesaw plank cell
+    (lever != 0)."""
+    x0, y0, _, _ = _cell(g, x, y)
+    lv = g.lever
+    return ((lv[x0, y0] != 0) | (lv[x0 + 1, y0] != 0)
+            | (lv[x0, y0 + 1] != 0) | (lv[x0 + 1, y0 + 1] != 0))
+
+
+def sample_height_nearest(g: HeightGrid, x, y, weights=None):
+    """Nearest-node height (torch.round rounds half to even, as jnp.round)."""
+    gx, gy = _grid_coords(g, x, y)
+    return _node(g, torch.round(gx).long(), torch.round(gy).long(), weights)
+
+
 def sample_height_min3(g: HeightGrid, x, y, weights=None):
     """Conservative floor-node height: min of the cell node and its +x/+y
     neighbours (the reference's scandot lookup)."""
-    gx, gy = _grid_coords(g, x, y)
-    x0 = torch.floor(gx).long()
-    y0 = torch.floor(gy).long()
+    x0, y0, _, _ = _cell(g, x, y)
     hm = torch.minimum(_node(g, x0, y0, weights), _node(g, x0 + 1, y0, weights))
     return torch.minimum(hm, _node(g, x0, y0 + 1, weights))
 
 
-def sample_normal(g: HeightGrid, x, y, eps: float = None):
-    """Unit surface normal from central differences of the bilinear surface."""
+def sample_normal(g: HeightGrid, x, y, weights=None, eps: float = None):
+    """Unit surface normal from central differences of the bilinear surface
+    (with the env's `weights` folded in, as sample_height)."""
     e = g.hscale if eps is None else eps
-    dhdx = (sample_height(g, x + e, y) - sample_height(g, x - e, y)) / (2 * e)
-    dhdy = (sample_height(g, x, y + e) - sample_height(g, x, y - e)) / (2 * e)
+    h = lambda xx, yy: sample_height(g, xx, yy, weights)
+    dhdx = (h(x + e, y) - h(x - e, y)) / (2 * e)
+    dhdy = (h(x, y + e) - h(x, y - e)) / (2 * e)
     n = torch.stack([-dhdx, -dhdy, torch.ones_like(dhdx)], dim=-1)
     return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)

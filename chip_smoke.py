@@ -58,22 +58,49 @@ Phases (any failure exits nonzero and prints no result line):
                (active ceiling contacts, printed); envs that the step resets are
                compared on their pre-reset (terminal) features, within 1e-3.
   7. BBC slice — play_bbc at 4096 envs on the rough-terrain Go2LocomotionCfg with
-               logs/bbc_r5/bbc_15k.msgpack for 250 control steps (trot, vx 1.0)
+               logs/bbc_r5/bbc_15k.msgpack for 120 control steps (trot, vx 1.0)
                and --gait_bands on the port's assets/gait_bands_real.json; K1
                launches = substeps run, K2 launches = control steps + 1, every
                state finite, median base height over the terrain in [0.15,
-               0.45] m; the gait report (duty, stride_hz, diag_sync after the
-               first 100 steps, against the real-clip trot bands) printed with
+               0.45] m; the gait report (duty, stride_hz, diag_sync over the
+               run, against the real-clip trot bands) printed with
                the JAX package's trot line of logs/bbc_r5/gait_report_28k.txt
                beside it (another checkpoint, 8 envs, 300 steps on a CPU: not
                a comparable number).  Gated only on the stats being finite
                and physical (duty and sync in [0, 1], stride_hz in [0, 1/(2
                dt)]): the verdict is a reading, not a gate.
+               The slice also profiles two control steps (device ops, busy
+               share) for the per-env slices to print beside theirs.
+  7a. K1 per-env — K1 on the per-env engine's route
+               (kernels/contact_lcp.per_env_problem: G = JpT^T M^-1 JpT and the
+               other inputs from engine._pre_contact, one substep into the BBC
+               batch of phase 2, N = 4096, S = 24, 10 cold sweeps), gated and
+               timed as phase 2.
+  7b. per-env parity — one env step of 64 envs on the card against the CPU
+               for every per-env engine variant: solver jacobi (soa=False) and
+               pgs on the fast path (K1), pgs and jacobi with fast=False, soft
+               with fast on and off, patch_size=0, pallas_contact; then a TSC
+               env step (64 envs, 8 courses, 8 pressed into the tunnel roof)
+               with solver pgs, which the fast path's window keeps on the
+               per-env path with active ceiling rows (the JAX package's rule),
+               and with fast=False, which the ceiling forces onto SoA.  Each at
+               tests/test_soa.py's tolerances, with the launches it must make.
+  7c. BBC per-env slice — play_bbc's build and rollout (sim.solver set through
+               its `overrides` keyword) at 4096 envs, bbc_15k, trot at vx 1.0,
+               100 control steps, twice: solver pgs (the per-env Jacobi solve
+               through K1) and soft.  K1 launches = substeps (pgs) or 0 (soft),
+               K2 = steps + 1, finite states, median base height over the
+               terrain in [0.15, 0.45] m; env-steps/s, device ops per control
+               step and busy share (two steps profiled) beside the SoA slice's.
+  7d. PGS contact frames — EngineConfig(solver="pgs", fast=False), the serial
+               Gauss-Seidel solve (plain torch), on play_bbc's env and policy at
+               4096 envs for 10 control steps: timed, one step profiled, no K1
+               or K2 launch, finite, base height in range.
   8. TSC slice — play_tsc at 6144 envs on 64 courses with the TSC teacher
                resolved through --log_root/--proj_name/--exptid (a temporary
                root whose agility/r5 links logs/agility/r5/model_12000.msgpack;
                the weights loaded must equal that file's) and the frozen BBC
-               logs/bbc_r5/bbc_final.msgpack for 100 control steps; K1 launches =
+               logs/bbc_r5/bbc_final.msgpack for 40 control steps; K1 launches =
                4 x (steps + 1), K2 = K3 = steps + 1, every state finite, median
                base height over the folded floor in [0.15, 0.45] m.
   9. train parity — one BBC train iteration of 64 envs (T = 8, the rough
@@ -89,12 +116,11 @@ Phases (any failure exits nonzero and prints no result line):
                (the disc update's within DISC_PARAM_TOL), as |card - CPU| /
                |CPU| over each network.
  10. BBC train — cli/train_bbc at 4096 envs on go2_locomotion with the full
-               AlgoCfg for 2 iterations (iteration 0 runs DAgger): each
-               iteration's time and its stages' times (CUDA events), env-steps/s
-               over iteration 1, peak device memory, the last metrics; K1
-               launches = 4 x 24 x 2, K2 = 24 x 2 (counted after the runner's
-               init), every parameter and metric finite, ring size 2 x 24 x
-               4096, normaliser count above its start, and the slim checkpoint
+               AlgoCfg for 1 iteration (it runs DAgger): its time and its
+               stages' times (CUDA events), env-steps/s over it, peak device
+               memory, the metrics; K1 launches = 4 x 24, K2 = 24 (counted
+               after the runner's init), every parameter and metric finite,
+               ring size 24 x 4096, normaliser count above its start, and the slim checkpoint
                read back by play_bbc's policy loader to equal tensors; the env
                step alone (zero actions) timed before and after training; then
                one more iteration under torch.profiler for the device's busy
@@ -130,12 +156,12 @@ Phases (any failure exits nonzero and prints no result line):
  14. TSC train — cli/train_tsc at 6144 envs on 64 courses with the frozen
                logs/bbc_r5/bbc_final.msgpack, the reference's teacher flags
                (--randomize_start --randomize_base_mass --randomize_base_com
-               --push_robots) and the full TscAlgoCfg for 2 iterations
-               (iteration 0 runs DAgger): timed as BBC train; K1 launches = 4
-               x 24 x 2, K2 = K3 = 24 x 2, every parameter and metric finite,
-               priv_reg_counter 3, std >= min_std, the slim checkpoint read
-               back by params_from_jax_tsc to equal tensors; then one more
-               iteration under torch.profiler.
+               --push_robots) and the full TscAlgoCfg for 1 iteration (it
+               runs DAgger): timed as BBC train; K1 launches = 4 x 24, K2 = K3
+               = 24, every parameter and metric finite, priv_reg_counter 2,
+               std >= min_std, the slim checkpoint read back by
+               params_from_jax_tsc to equal tensors; then one more iteration
+               under torch.profiler.
  15. vision parity — one depth-student iteration of 64 envs on 8 courses
                (T = 8: camera chunks of 5 and 3, the teacher model_12000 and
                the frozen bbc_final, command noise off) on the card against
@@ -149,17 +175,17 @@ Phases (any failure exits nonzero and prints no result line):
                envs on 64 courses, the full VisionCfg (T = 24, six BYOL
                minibatches) and the 87 x 58 camera with 32 march samples,
                the teacher logs/agility/r5/model_12000.msgpack resolved
-               through a temporary --log_root that links it, for 2
-               iterations: timed as BBC train, with each stage (the
+               through a temporary --log_root that links it, for 1
+               iteration: timed as BBC train, with each stage (the
                estimator before a refresh, the ray-march, depth processing,
                encoder, heads and commands, env step, update, BYOL) and the ray-march's ms a refresh and share
-               of an iteration; K1 launches = 4 x 24 x 2, K2 = K3 = 24 x 2,
-               every parameter and metric finite, vision_2.msgpack read back
+               of an iteration; K1 launches = 4 x 24, K2 = K3 = 24, every
+               parameter and metric finite, vision_1.msgpack read back
                by params_from_jax_vision to equal tensors; then one more
                iteration under torch.profiler.
  17. vision play — cli/play_tsc --use_camera at 256 envs on 64 courses
                with that checkpoint, the teacher's estimator and the frozen
-               BBC for 50 control steps: K1 launches = 4 x (steps + 1), K2 =
+               BBC for 20 control steps: K1 launches = 4 x (steps + 1), K2 =
                K3 = steps + 1, every state finite, median base height over
                the folded floor in [0.15, 0.45] m, env-steps/s; then two
                steps under torch.profiler.
@@ -193,6 +219,7 @@ is the device record.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -214,15 +241,27 @@ JAX_GAIT_REPORT = os.path.join(ROOT, "logs", "bbc_r5", "gait_report_28k.txt")
 KERNELS = ("contact_lcp", "terrain_window", "scandots")   # csrc/<name>.cu
 K1_RTOL = 1e-4
 NUM_ENVS = 4096     # the BBC path's width
-STEPS = 250         # control steps of the BBC slice phase
+STEPS = 120         # control steps of the BBC slice phase (cut from 250 for the script's time)
 TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
-TSC_STEPS = 100     # control steps of the TSC slice phase (cut from 200 for the script's time)
-TRAIN_ITERS = 2     # iterations of the BBC, TSC and vision train phases (cut from 3 for
-#                     the 32k phases' time)
+TSC_STEPS = 40      # control steps of the TSC slice phase (cut from 200, then 100, for time)
+TRAIN_ITERS = 1     # iterations of the BBC, TSC and vision train phases (cut from 3 for
+#                     the 32k phases' time, then from 2 for the per-env phases')
 BIG_ENVS = 32768    # the 32k tasks' width (go2_locomotion_32k, go2_32k), one iteration each
 DDP_ENVS = 64       # DDP parity: 2 gloo ranks on one card against one process
+PER_ENV_STEPS = 100  # control steps of each BBC per-env slice (pgs, soft)
+PGS_STEPS = 10      # control steps of the contact-frame PGS run at the BBC's width
+# the per-env engine's variants in the parity phase: (label, EngineConfig
+# overrides on the BBC env's, K1 launches per substep, K2 per control step)
+PER_ENV_VARIANTS = (
+    ("jacobi_fast", dict(soa=False), 1, 1), ("pgs_fast", dict(solver="pgs"), 1, 1),
+    ("pgs_contact_frames", dict(solver="pgs", fast=False), 0, 0),
+    ("jacobi_contact_frames", dict(soa=False, fast=False), 0, 0),
+    ("soft_fast", dict(solver="soft"), 0, 1),
+    ("soft_contact_frames", dict(solver="soft", fast=False), 0, 0),
+    ("grid_direct", dict(soa=False, patch_size=0), 1, 0),
+    ("pallas_contact", dict(pallas_contact=True), 1, 1))
 VISION_ENVS = 256   # the depth student's width (DepthCfg.camera_num_envs), on 64 courses
-VISION_STEPS = 50   # control steps of the vision play phase
+VISION_STEPS = 20   # control steps of the vision play phase (cut from 50 for time)
 # the refresh images, card vs CPU (tests/test_torch_vision.py's rule): the
 # pixels raycast.crossing_mask leaves out are counted; the rest are held at
 # DEPTH_TOL m (a grazing ray's secant step magnifies a clearance's float32
@@ -379,11 +418,52 @@ def k1_inputs(env, s, params, lam0_warm):
                                **soa.contact_kwargs(ecfg))
 
 
-def phase_k1(cases):
-    """K1 against its plain version on each (path, env, states, params) case;
-    the ceiling rows (past the env's S sphere rows) must be active where the
-    grid has a ceiling."""
+def k1_check(label, args, iters, S, ceiling, warm=False):
+    """K1 against its plain version on inputs `args` (`iters` sweeps from
+    lam0, nonzero where `warm`): the error gate, two calls the same bits,
+    contacts active (and ceiling rows past the S sphere rows where
+    `ceiling`), and the timings."""
     from agility_tpu_torch.kernels import contact_lcp as k1
+
+    kw = dict(iters=iters, relax=0.6)
+    out = k1.contact_lcp(*args, **kw)
+    again = k1.contact_lcp(*args, **kw)
+    ref = k1.contact_lcp_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    rel = err / max(scale, 1e-30)
+    same = torch.equal(out, again)
+    n_active = int(args[4].sum())
+    n_ceil = int(args[4][:, S:].sum())
+    lam0_max = float(args[7].abs().max())
+    N, M = args[1].shape
+    # each input read once and lam written once; a sweep is one (M x M)
+    # matrix-vector product per env
+    t = timed(lambda: k1.contact_lcp(*args, **kw), lambda: k1.contact_lcp_reference(*args, **kw),
+              nbytes(*args, out), 2 * iters * N * M * M)
+    cfg = k1.device_launch_config(N, M // 3, args[0].device)
+    print(f"K1 {label}: N={N} S={M // 3} iters={iters} launch {cfg}; "
+          f"active contacts {n_active} (ceiling rows {n_ceil}) max|lam0| "
+          f"{lam0_max:.4g} max|lam| {scale:.4g} max abs err {err:.3e} rel {rel:.3e} "
+          f"(tol {K1_RTOL:g}), two calls bit-identical {same}; G {nbytes(args[0])} "
+          f"bytes; {fmt_times(t)}", flush=True)
+    if not np.isfinite(err) or rel > K1_RTOL:
+        raise SystemExit(f"K1 {label}: kernel disagrees with the plain version")
+    if not same:
+        raise SystemExit(f"K1 {label}: two calls on the same inputs differ")
+    if n_active == 0 or (warm and lam0_max == 0.0):
+        raise SystemExit(f"K1 {label}: inputs exercise no contact")
+    if ceiling and n_ceil == 0:
+        raise SystemExit(f"K1 {label}: no ceiling row is active")
+    return dict(max_abs_err=err, rel_err=rel, **t)
+
+
+def phase_k1(cases):
+    """K1 against its plain version on each (path, env, states, params) case,
+    as the SoA substep builds its inputs, warm and cold; the ceiling rows
+    (past the env's S sphere rows) must be active where the grid has a
+    ceiling."""
     from agility_tpu_torch.physics import soa
 
     rows = {}
@@ -391,41 +471,43 @@ def phase_k1(cases):
         S = soa.consts_of(env.mc).S
         for mode, warm, iters in (("warm", True, 5), ("cold", False, 10)):
             label = f"{path} {mode}"
-            args = k1_inputs(env, s, params, warm)
-            kw = dict(iters=iters, relax=0.6)
-            out = k1.contact_lcp(*args, **kw)
-            again = k1.contact_lcp(*args, **kw)
-            ref = k1.contact_lcp_reference(*args, **kw)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            scale = float(ref.abs().max())
-            rel = err / max(scale, 1e-30)
-            same = torch.equal(out, again)
-            n_active = int(args[4].sum())
-            n_ceil = int(args[4][:, S:].sum())
-            lam0_max = float(args[7].abs().max())
-            N, M = args[1].shape
-            # each input read once and lam written once; a sweep is one
-            # (M x M) matrix-vector product per env
-            t = timed(lambda: k1.contact_lcp(*args, **kw),
-                      lambda: k1.contact_lcp_reference(*args, **kw),
-                      nbytes(*args, out), 2 * iters * N * M * M)
-            cfg = k1.device_launch_config(N, M // 3, args[0].device)
-            print(f"K1 {label}: N={N} S={M // 3} iters={iters} launch {cfg}; "
-                  f"active contacts {n_active} (ceiling rows {n_ceil}) max|lam0| "
-                  f"{lam0_max:.4g} max|lam| {scale:.4g} max abs err {err:.3e} rel {rel:.3e} "
-                  f"(tol {K1_RTOL:g}), two calls bit-identical {same}; G {nbytes(args[0])} "
-                  f"bytes; {fmt_times(t)}", flush=True)
-            if not np.isfinite(err) or rel > K1_RTOL:
-                raise SystemExit(f"K1 {label}: kernel disagrees with the plain version")
-            if not same:
-                raise SystemExit(f"K1 {label}: two calls on the same inputs differ")
-            if n_active == 0 or (warm and lam0_max == 0.0):
-                raise SystemExit(f"K1 {label}: inputs exercise no contact")
-            if env.grid.ceiling is not None and n_ceil == 0:
-                raise SystemExit(f"K1 {label}: no ceiling row is active")
-            rows[label] = dict(max_abs_err=err, rel_err=rel, **t)
+            rows[label] = k1_check(label, k1_inputs(env, s, params, warm), iters, S,
+                                   env.grid.ceiling is not None, warm)
     return rows
+
+
+def k1_per_env_inputs(env, s, params, iters):
+    """K1's inputs on the per-env route (kernels/contact_lcp.per_env_problem)
+    from the fast path's data on env states `s`, one substep in: G =
+    JpT^T M^-1 JpT from engine._pre_contact, cold."""
+    from agility_tpu_torch.kernels import contact_lcp as k1
+    from agility_tpu_torch.kernels.terrain_window import terrain_window
+    from agility_tpu_torch.physics import dynamics as dyn
+    from agility_tpu_torch.physics import engine as eng
+    from agility_tpu_torch.physics import soa
+
+    ecfg = dataclasses.replace(env.engine_cfg, solver="pgs", warm_start=False,
+                               jacobi_iters=iters)
+    ctl = eng.Control(target=env.mc.default_dof_pos.expand(env.num_envs, 12), kp=env.kp,
+                      kd=env.kd)
+    patch = terrain_window(env.grid, s.base_pos[:, :2].contiguous(), ecfg.patch_size,
+                           params.hf_weights)
+    s, _, _ = eng.substep(env.mc, ecfg, env.grid, s, ctl, params, patch)
+    p = eng._pre_contact(env.mc, ecfg, env.grid, s, ctl, params, patch)
+    G = p.JpT.transpose(1, 2) @ dyn.solve_mass(p.factors, p.JpT)
+    return k1.per_env_problem(p.phi, p.normals, p.JpT, G, p.u_free, params.friction, ecfg.dt,
+                              **soa.contact_kwargs(ecfg))
+
+
+def phase_k1_per_env(env, s, params, iters=10):
+    """K1 on the per-env route at the BBC's width (N = 4096, S = 24, the
+    per-env path's 2 x 5 cold sweeps), against its plain version with the
+    same gate as phase_k1."""
+    from agility_tpu_torch.physics import soa
+
+    label = "bbc per-env cold"
+    return {label: k1_check(label, k1_per_env_inputs(env, s, params, iters), iters,
+                            soa.consts_of(env.mc).S, False)}
 
 
 def course_case(n, seed=0, env=None):
@@ -697,6 +779,90 @@ def phase_tsc_parity(num_envs=64, courses=8, under_roof=8):
         raise SystemExit("TSC parity: no ceiling contact was active")
 
 
+def _step_errors(gpu, cpu, s, acts, ecfg):
+    """One env step under engine config `ecfg` on the card and on the CPU
+    from state `s`: (errors over the envs neither side reset, launches on
+    the card, resets equal)."""
+    gpu.engine_cfg = cpu.engine_cfg = ecfg
+    _counts_zero()
+    og, outg = gpu.step(s, acts)
+    torch.cuda.synchronize()
+    launches = _counts()
+    oc, outc = cpu.step(_to(s, "cpu"), acts.cpu())
+    keep = ~(outc.reset | outg.reset.cpu())
+    errs = {k: float((getattr(og.sim, k).cpu() - getattr(oc.sim, k))[keep].abs().max())
+            for k in SOA_TOL}
+    return errs, launches, torch.equal(outg.reset.cpu(), outc.reset)
+
+
+def phase_per_env_parity(num_envs=64, courses=8, under_roof=8):
+    """One BBC control step of each per-env engine variant (PER_ENV_VARIANTS:
+    the world-frame Jacobi solve through K1 for solver jacobi and pgs, PGS
+    and Jacobi in contact frames, soft contacts on either path, direct grid
+    queries, pallas_contact) on the card against the CPU from one state, at
+    tests/test_soa.py's tolerances, with the launches each variant must
+    make; then one TSC env step with solver "pgs" on the course world (8
+    envs pressed into the tunnel roof): with the fast path's window the
+    per-env path sees the ceiling (its rows active), as the JAX package's
+    step_batch rules; with fast=False the ceiling keeps it on SoA."""
+    from agility_tpu_torch.cli import registry
+    from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
+    from agility_tpu_torch.learn.policy import build_policy
+    from agility_tpu_torch.physics import engine as eng
+
+    cfg = registry.apply_overrides(registry.get("go2_locomotion")[0](),
+                                   **{"env.num_envs": num_envs,
+                                      "env.mocap_category": ("trot",)})
+    gpu, cpu = Go2LocomotionEnv(cfg, "cuda", seed=0), Go2LocomotionEnv(cfg, "cpu", seed=0)
+    s = gpu.init_state()
+    acts = build_policy(cfg, device="cuda")(s.obs_buf)
+    base, dec = gpu.engine_cfg, gpu.engine_cfg.decimation
+    cases = [(label, gpu, cpu, s, acts, dataclasses.replace(base, **kw), False,
+              dict(contact_lcp=k1 * dec, terrain_window=k2, scandots=0))
+             for label, kw, k1, k2 in PER_ENV_VARIANTS]
+    tg, policy = tsc_env(num_envs, courses)
+    tc = type(tg)(tg.cfg, "cpu", seed=0)
+    ts = press_into_roof(tg, tg.init_state(), under_roof)
+    ts, nc = tg.set_commands(ts, policy.act(ts.obs_buf))
+    tacts = policy.bbc_act(ts.obs_bbc_buf, nc)
+    tsc_want = dict(contact_lcp=dec, terrain_window=1, scandots=1)
+    cases += [("tsc_pgs_fast", tg, tc, ts, tacts,
+               dataclasses.replace(tg.engine_cfg, solver="pgs"), False, tsc_want),
+              ("tsc_pgs_contact_frames_soa", tg, tc, ts, tacts,
+               dataclasses.replace(tg.engine_cfg, solver="pgs", fast=False), True, tsc_want)]
+    for label, g, c, st, a, ecfg, soa_path, want in cases:
+        errs, launches, same_resets = _step_errors(g, c, st, a, ecfg)
+        n_ceil = (_per_env_ceiling_contacts(c, _to(st, "cpu"), ecfg)
+                  if label == "tsc_pgs_fast" else None)
+        print(f"per-env parity {label}: {num_envs} envs, one env step card vs CPU, SoA path "
+              f"{eng.uses_soa(ecfg, g.grid)}, launches {launches} (want {want})"
+              + ("" if n_ceil is None else f", active ceiling rows {n_ceil}") + "; "
+              + ", ".join(f"{k} {v:.3e} (tol {SOA_TOL[k]:g})" for k, v in errs.items()),
+              flush=True)
+        if eng.uses_soa(ecfg, g.grid) != soa_path:
+            raise SystemExit(f"per-env parity {label}: took the wrong path")
+        if launches != want or not same_resets:
+            raise SystemExit(f"per-env parity {label}: launch counts or resets differ")
+        if not all(np.isfinite(v) and v <= SOA_TOL[k] for k, v in errs.items()):
+            raise SystemExit(f"per-env parity {label}: the card's step disagrees with the CPU's")
+        if n_ceil == 0:
+            raise SystemExit(f"per-env parity {label}: no ceiling row is active")
+
+
+def _per_env_ceiling_contacts(env, s, ecfg):
+    """Ceiling rows with phi < 0 on the per-env fast path in TSC state `s`."""
+    from agility_tpu_torch.kernels.terrain_window import terrain_window
+    from agility_tpu_torch.physics import engine as eng
+    from agility_tpu_torch.physics import soa
+
+    ctl = eng.Control(env.mc.default_dof_pos.expand(env.num_envs, 12), env.kp, env.kd)
+    params = env.base_params._replace(hf_weights=env._weights(s))
+    patch = terrain_window(env.grid, s.sim.base_pos[:, :2].contiguous(), ecfg.patch_size,
+                           params.hf_weights)
+    p = eng._pre_contact(env.mc, ecfg, env.grid, s.sim, ctl, params, patch)
+    return int((p.phi[:, soa.consts_of(env.mc).S:] < 0).sum())
+
+
 def _active_ceiling_contacts(env, s):
     """Ceiling contact rows with phi < 0 in state `s` (the contact geometry
     does not depend on the control), on the env's device."""
@@ -759,7 +925,135 @@ def phase_slice(num_envs, steps):
         raise SystemExit("BBC slice: non-finite state")
     if not 0.15 <= med_h <= 0.45:
         raise SystemExit("BBC slice: median base height over terrain outside [0.15, 0.45] m")
-    return launches
+    return launches, dict(play_profile("BBC slice", res, num_envs), rate=res["env_steps_per_s"])
+
+
+def step_profile(label, step, s, step_ms, steps=2):
+    """Device ops and busy time per control step (kernel, copy and fill
+    durations; counted as profile_slice.py counts them) of `steps` calls
+    s = step(s) under torch.profiler, against the unprofiled step time
+    `step_ms`.  A reading, not a gate."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            s = step(s)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.device_time_total for e in dev) / 1e3 / steps
+    r = dict(ops=len(dev) / steps, busy_ms=busy_ms, step_ms=step_ms, busy=busy_ms / step_ms)
+    print(f"{label} profile: {r['ops']:.0f} device ops per control step, device busy "
+          f"{busy_ms:.2f} ms per step, {100 * r['busy']:.1f}% of the unprofiled "
+          f"{step_ms:.1f} ms step", flush=True)
+    return r
+
+
+def play_profile(label, res, num_envs, steps=2):
+    """step_profile of a play_bbc rollout's env, policy and command hold."""
+    env, policy, hold = res["env"], res["policy"], res["hold"]
+
+    def step(s):
+        s = hold(s)
+        return env.step(s, policy(s.obs_buf))[0]
+
+    return step_profile(label, step, res["state"], num_envs / res["env_steps_per_s"] * 1e3,
+                        steps)
+
+
+def _height_over_terrain(env, s):
+    """Median base height over the terrain under it, m (a BBC env)."""
+    from agility_tpu_torch.physics import heightfield as hf
+
+    pos = s.sim.base_pos
+    return float((pos[:, 2] - hf.sample_height(env.grid, pos[:, 0], pos[:, 1])).median())
+
+
+def phase_per_env_slice(num_envs, steps, solver, soa_reading):
+    """play_bbc's build and rollout at the BBC's width with sim.solver set
+    (a build keyword; the CLI has no flag for it), which puts the env on the
+    per-env engine: "pgs" is the world-frame Jacobi solve through K1 (2 x 5
+    cold sweeps a substep), "soft" the penalty contacts.  Gates: K1 launches
+    = substeps for pgs and 0 for soft, K2 = control steps + 1, finite
+    states, median base height over the terrain in [0.15, 0.45] m.  Prints
+    env-steps/s, device ops per control step and the busy share beside the
+    SoA slice's from this call."""
+    from agility_tpu_torch.cli import play_bbc
+    from agility_tpu_torch.physics import engine as eng
+
+    label = f"BBC per-env slice ({solver})"
+    args = play_bbc.get_args(["--device", "cuda", "--num_envs", str(num_envs), "--checkpoint",
+                              CHECKPOINT, "--mode", "trot", "--vx", "1.0", "--steps", str(steps)])
+    _counts_zero()
+    res = play_bbc.run(args, overrides={"sim.solver": solver})
+    launches = _counts()
+    env, s = res["env"], res["state"]
+    finite = all(bool(torch.isfinite(t).all()) for t in (*s.sim, s.obs_buf))
+    med_h = _height_over_terrain(env, s)
+    want = dict(contact_lcp=res["substeps"] if solver != "soft" else 0,
+                terrain_window=steps + 1, scandots=0)
+    prof = play_profile(label, res, num_envs)
+    print(f"{label}: {num_envs} envs x {steps} control steps, solver "
+          f"{env.engine_cfg.solver}; launches {launches} (want {want}), all states finite "
+          f"{finite}, median base height over terrain {med_h:.4f} m; "
+          f"{res['env_steps_per_s']:.1f} env-steps/s (the SoA slice in this call: "
+          f"{soa_reading['rate']:.1f}), device ops per control step {prof['ops']:.0f} "
+          f"(SoA {soa_reading['ops']:.0f}), busy {100 * prof['busy']:.1f}% "
+          f"(SoA {100 * soa_reading['busy']:.1f}%) on {torch.cuda.get_device_name(0)}",
+          flush=True)
+    if eng.uses_soa(env.engine_cfg, env.grid):
+        raise SystemExit(f"{label}: the config took the SoA path")
+    if launches != want:
+        raise SystemExit(f"{label}: a kernel's launch count differs from the steps run")
+    if not finite:
+        raise SystemExit(f"{label}: non-finite state")
+    if not 0.15 <= med_h <= 0.45:
+        raise SystemExit(f"{label}: median base height over terrain outside [0.15, 0.45] m")
+    return launches, dict(prof, rate=res["env_steps_per_s"])
+
+
+def phase_pgs_contact_frames(num_envs, steps):
+    """The true projected Gauss-Seidel solve (EngineConfig solver "pgs",
+    fast=False: contact frames, direct grid queries, serial over the 24
+    contacts in each of 4 sweeps; plain torch, no kernel) at the BBC's
+    width for `steps` control steps of play_bbc's env and policy, timed
+    (synchronised host clock) and one step profiled.  Gates: no K1 or K2
+    launch, finite states, median base height over the terrain in [0.15,
+    0.45] m."""
+    from agility_tpu_torch.cli import play_bbc
+    from agility_tpu_torch.physics import engine as eng
+
+    args = play_bbc.get_args(["--device", "cuda", "--num_envs", str(num_envs), "--checkpoint",
+                              CHECKPOINT, "--mode", "trot", "--vx", "1.0"])
+    env, policy, _, hold = play_bbc.build(args)
+    env.engine_cfg = dataclasses.replace(env.engine_cfg, solver="pgs", fast=False)
+
+    def step(s):
+        s = hold(s)
+        return env.step(s, policy(s.obs_buf))[0]
+
+    s = env.init_state()
+    torch.cuda.synchronize()
+    _counts_zero()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        s = step(s)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = _counts()
+    rate = num_envs / step_ms * 1e3
+    prof = step_profile("PGS contact frames", step, s, step_ms, steps=1)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*s.sim, s.obs_buf))
+    med_h = _height_over_terrain(env, s)
+    print(f"PGS contact frames: {num_envs} envs x {steps} control steps, {step_ms:.1f} ms a "
+          f"step, {rate:.1f} env-steps/s, launches {launches}, all states finite {finite}, "
+          f"median base height over terrain {med_h:.4f} m", flush=True)
+    if eng.uses_soa(env.engine_cfg, env.grid) or any(launches.values()):
+        raise SystemExit("PGS contact frames: the run took a kernel or the SoA path")
+    if not finite or not 0.15 <= med_h <= 0.45:
+        raise SystemExit("PGS contact frames: non-finite state or base height outside "
+                         "[0.15, 0.45] m")
+    return launches, dict(prof, rate=rate)
 
 
 def gait_reading(res, num_envs, steps):
@@ -772,8 +1066,11 @@ def gait_reading(res, num_envs, steps):
     with open(JAX_GAIT_REPORT) as f:
         blocks = f.read().split("=== mode ")
     jax_trot = next(b for b in blocks if b.startswith("trot")).strip().splitlines()
-    print(f"BBC slice gait: trot, vx 1.0, bbc_15k, {num_envs} envs x {steps} steps, the first "
-          f"100 skipped: duty FL/FR/RL/RR {np.array2string(duty, precision=4)} (mean "
+    from agility_tpu_torch.cli.play_bbc import TRANSIENT
+
+    skipped = f"the first {TRANSIENT} skipped" if steps > 2 * TRANSIENT else "none skipped"
+    print(f"BBC slice gait: trot, vx 1.0, bbc_15k, {num_envs} envs x {steps} steps, {skipped}: "
+          f"duty FL/FR/RL/RR {np.array2string(duty, precision=4)} (mean "
           f"{duty.mean():.4f}), stride_hz {np.array2string(hz, precision=4)} (mean "
           f"{hz.mean():.4f}), diag_sync {sync:.4f}; against the real-clip bands {bands}: "
           f"{'PASS' if verdict['ok'] else 'FAIL'} {verdict} (a reading, not a gate). The JAX "
@@ -845,23 +1142,10 @@ def phase_tsc_slice(num_envs, steps, root):
 
 
 def tsc_busy_share(res, num_envs, steps=2):
-    """Device ops and busy time per TSC control step under torch.profiler
-    (kernel, copy and fill durations on one stream), against the slice's
-    unprofiled step time.  A reading, not a gate."""
-    from torch.profiler import ProfilerActivity, profile as trace
-
-    env, policy, s = res["env"], res["policy"], res["state"]
-    torch.cuda.synchronize()
-    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            s, _ = policy.step(env, s)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.device_time_total for e in dev) / 1e3 / steps
-    step_ms = num_envs / res["env_steps_per_s"] * 1e3
-    print(f"TSC profile: {len(dev) / steps:.0f} device ops per control step, device busy "
-          f"{busy_ms:.2f} ms per step, {100 * busy_ms / step_ms:.1f}% of the unprofiled "
-          f"{step_ms:.1f} ms step", flush=True)
+    """step_profile of a play_tsc rollout's policy step."""
+    env, policy = res["env"], res["policy"]
+    step_profile("TSC", lambda s: policy.step(env, s)[0], res["state"],
+                 num_envs / res["env_steps_per_s"] * 1e3, steps)
 
 
 def _rel(a, b):
@@ -2011,6 +2295,13 @@ def main():
                                          ("tsc_vision", k3_case(VISION_ENVS))])),
                 ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
                 ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
+                ("K1 per-env", lambda: phase_k1_per_env(*bbc)),
+                ("per-env parity", phase_per_env_parity),
+                ("BBC per-env slice pgs", lambda: phase_per_env_slice(
+                    NUM_ENVS, PER_ENV_STEPS, "pgs", rows["BBC slice"][1])),
+                ("BBC per-env slice soft", lambda: phase_per_env_slice(
+                    NUM_ENVS, PER_ENV_STEPS, "soft", rows["BBC slice"][1])),
+                ("PGS contact frames", lambda: phase_pgs_contact_frames(NUM_ENVS, PGS_STEPS)),
                 ("TSC slice", lambda: phase_tsc_slice(TSC_ENVS, TSC_STEPS, tmp_root)),
                 ("train parity", phase_train_parity),
                 ("BBC train", lambda: phase_train(NUM_ENVS, TRAIN_ITERS)),
@@ -2033,7 +2324,11 @@ def main():
     for phase in ("BBC train 32k", "TSC train 32k"):
         for k, r in zip(("K1", "K2", "K3"), rows[phase][1:]):
             rows[k].update(r)
-    paths = dict(bbc_play=rows["BBC slice"], tsc_play=rows["TSC slice"],
+    rows["K1"].update(rows["K1 per-env"])
+    paths = dict(bbc_play=rows["BBC slice"][0],
+                 bbc_play_per_env=rows["BBC per-env slice pgs"][0],
+                 bbc_play_per_env_soft=rows["BBC per-env slice soft"][0],
+                 bbc_pgs_contact_frames=rows["PGS contact frames"][0], tsc_play=rows["TSC slice"],
                  bbc_train=rows["BBC train"], bbc_mocap_train=rows["BBC mocap"],
                  tsc_train=rows["TSC train"],
                  tsc_vision_train=rows["vision train"][0], tsc_vision_play=rows["vision play"],

@@ -23,6 +23,7 @@ from agility_tpu.envs import tsc_config as jtsc
 from agility_tpu.learn import ppo_tsc as jppo
 from agility_tpu.learn import ssinfogail as jgail
 from agility_tpu.learn import vision_tsc as jvis
+from agility_tpu.physics import engine as jeng
 from agility_tpu.terrain import generator as jgen
 from agility_tpu.terrain import obstacle as jobst
 from agility_tpu_torch.cli import registry as treg
@@ -32,6 +33,7 @@ from agility_tpu_torch.envs import tsc_config as ttsc
 from agility_tpu_torch.learn import ppo_tsc as tppo
 from agility_tpu_torch.learn import ssinfogail as tgail
 from agility_tpu_torch.learn import vision_tsc as tvis
+from agility_tpu_torch.physics import engine as teng
 from agility_tpu_torch.terrain import generator as tgen
 from agility_tpu_torch.terrain import obstacle as tobst
 
@@ -104,6 +106,14 @@ def test_config_dataclasses_equal(pair):
     assert (dataclasses.asdict(ttsc.tsc_smoke_cfg(4, 3))
             == dataclasses.asdict(jtsc.tsc_smoke_cfg(4, 3)))
     assert tcfg.MOCAP_CATEGORIES == jcfg.MOCAP_CATEGORIES
+
+
+def test_engine_config_equal():
+    """The port's EngineConfig has the JAX package's fields, in order, and
+    defaults, apart from `dtype` (the port's engine takes its dtype from the
+    model constants)."""
+    j = [(f.name, f.default) for f in dataclasses.fields(jeng.EngineConfig) if f.name != "dtype"]
+    assert [(f.name, f.default) for f in dataclasses.fields(teng.EngineConfig)] == j
 
 
 def _assert_same(got, want):
@@ -187,5 +197,7 @@ def test_public_device_defaults_are_cuda():
                  "envs.go2_locomotion.state_from_jax", "envs.go2_agility.state_from_jax",
                  "envs.mocap.synthetic", "envs.mocap.load_dir",
                  "learn.networks.RunningNormalizer.__init__",
-                 "learn.replay.Ring.__init__", "render.raycast.make_camera"):
+                 "learn.replay.Ring.__init__", "render.raycast.make_camera",
+                 "physics.heightfield.flat_grid", "physics.state.zero_state",
+                 "physics.engine.EnvParams.nominal"):
         assert f"agility_tpu_torch.{want}" in found, want

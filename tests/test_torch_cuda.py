@@ -82,6 +82,48 @@ def test_control_step_on_card_matches_cpu(card):
 
 
 @pytest.mark.cuda
+def test_contact_lcp_per_env_route_matches_reference(card):
+    """K1 through the per-env engine's route (contact_lcp.jacobi_solve_batch,
+    inputs from engine._pre_contact on the card) against the same route on
+    the CPU tensors' plain version; then a per-env control step (solver
+    "pgs": the world-frame Jacobi solve, 2 x 5 cold sweeps) on the card
+    against the CPU at tests/test_soa.py's tolerances, K1 launched once a
+    substep."""
+    from agility_tpu_torch.kernels.terrain_window import terrain_window
+    from agility_tpu_torch.physics import dynamics as dyn
+
+    s, ctl, prm, grid = batch_case(device="cuda")
+    mc = model_consts("cuda")
+    patch = terrain_window(grid, s.base_pos[:, :2].contiguous(), 24, None)
+    p = teng._pre_contact(mc, teng.EngineConfig(), grid, s, ctl, prm, patch)
+    MinvJT = dyn.solve_mass(p.factors, p.JpT)
+    G = p.JpT.transpose(1, 2) @ MinvJT
+    args = (p.phi, p.normals, p.JpT, MinvJT, G, p.u_free, prm.friction, 0.005)
+    before = k1.contact_lcp.launches
+    u, f = k1.jacobi_solve_batch(*args, iters=10)
+    torch.cuda.synchronize()
+    assert k1.contact_lcp.launches == before + 1
+    ru, rf = k1.jacobi_solve_batch(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                                   iters=10)
+    assert float(rf.abs().max()) > 1.0                   # contacts carry force
+    torch.testing.assert_close(f.cpu(), rf, rtol=0, atol=1e-4 * float(rf.abs().max()))
+    torch.testing.assert_close(u.cpu(), ru, rtol=0, atol=1e-4)
+
+    cfg = teng.EngineConfig(solver="pgs", warm_start=True, jacobi_iters=5)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        s, ctl, prm, grid = batch_case(device=dev)
+        before = k1.contact_lcp.launches
+        outs[dev] = teng.step_batch(model_consts(dev), cfg, grid, s, ctl, prm)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert k1.contact_lcp.launches == before + cfg.decimation
+    g, c = outs["cuda"][0], outs["cpu"][0]
+    for k, atol in dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2).items():
+        torch.testing.assert_close(getattr(g, k).cpu(), getattr(c, k), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
 def test_terrain_window_kernel_matches_reference(card):
     """K2 against its plain version, exactly (chip_smoke.py repeats this at
     N = 6144 on the 64-course world): with weights and a ceiling, without

@@ -1,6 +1,7 @@
 """The port's BBC env and mocap module vs agility_tpu.envs.
 
-One env step from an identical state and identical actions: the JAX env's
+One env step from an identical state and identical actions (and one with
+sim.solver="soft", on the per-env engine): the JAX env's
 state is carried across with `state_from_jax`, noise, pushes and action
 delay are off, and the compared step has no reset and no command resample
 (the two packages draw from different random streams).  The JAX step runs
@@ -153,3 +154,27 @@ def test_sample_frames_statistics(envs):
     vx = f[:, tmocap.LIN_VEL][:, 0]
     means = [float(vx[c_idx == c].mean()) for c in range(5)]
     assert means[0] < 0.7 and means[3] > 1.1, means
+
+
+def test_env_soft_solver_matches_jax():
+    """One env step with sim.solver="soft" (penalty contacts on the per-env
+    engine) from one state and one action batch, against the JAX env's step
+    (jitted; with this solver it takes its per-env engine whatever
+    AGILITY_ENGINE says), at tests/test_soa.py's tolerances.  The port's
+    envs once dropped `solver` and ran the SoA Jacobi solve instead
+    (ROADMAP Queue 3); the errors print with -s."""
+    cfg = lambda m: m.Go2LocomotionCfg(
+        env=m.EnvCfg(num_envs=N), sim=m.SimCfg(solver="soft"),
+        domain_rand=m.DomainRandCfg(push_robots=False, action_delay=False),
+        noise=m.NoiseCfg(add_noise=False))
+    je, te = jenv.Go2LocomotionEnv(cfg(jcfg)), tenv.Go2LocomotionEnv(cfg(tcfg), "cpu")
+    s0 = jax.jit(je.init_state)(jax.random.PRNGKey(3))
+    acts = np.random.default_rng(0).normal(0, 0.5, (N, 12)).astype(np.float32)
+    s1, _ = jax.jit(je.step)(s0, jnp.asarray(acts))
+    t1, _ = te.step(tenv.state_from_jax(s0, "cpu"), torch.as_tensor(acts))
+    tol = dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2)
+    errs = {k: float(np.abs(getattr(t1.sim, k).numpy() - np.asarray(getattr(s1.sim, k))).max())
+            for k in tol}
+    print("soft env step, port vs JAX, max abs error:", errs)
+    assert all(errs[k] <= tol[k] for k in tol), errs
+    assert te.engine_cfg.solver == "soft"

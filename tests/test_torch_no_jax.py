@@ -2,7 +2,7 @@
 the JAX package: a fresh interpreter with jax, flax, optax and agility_tpu
 blocked imports every module of agility_tpu_torch, chip_smoke.py, multi_card.py,
 kernel_bench.py and profile_slice.py, then takes two env steps of 2 envs on
-the CPU; a second one plays two hierarchical TSC steps of 2 envs on a
+the CPU and one on the per-env engine (sim.solver="pgs"); a second one plays two hierarchical TSC steps of 2 envs on a
 2-course world; a third trains the BBC for two iterations of 8 envs through
 cli/train_bbc; a fourth trains the TSC teacher for two iterations of 4 envs
 on 2 courses through cli/train_tsc (full TscAlgoCfg), then resumes from
@@ -43,6 +43,15 @@ SCRIPT = textwrap.dedent("""
     for _ in range(2):
         s, out = env.step(s, policy(s.obs_buf))
     assert s.obs_buf.shape == (2, 671) and bool(torch.isfinite(s.obs_buf).all())
+    # the per-env engine (sim.solver="pgs": the world-frame Jacobi solve)
+    from agility_tpu_torch.envs.config import SimCfg
+    from agility_tpu_torch.physics.engine import uses_soa
+    env = Go2LocomotionEnv(Go2LocomotionCfg(env=EnvCfg(num_envs=2), sim=SimCfg(solver="pgs")),
+                           "cpu")
+    assert not uses_soa(env.engine_cfg, env.grid)
+    s = env.init_state()
+    s, out = env.step(s, policy(s.obs_buf))
+    assert bool(torch.isfinite(s.sim.u).all())
     assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
                                                                   "agility_tpu."))
                    for k, v in sys.modules.items() if v is not None)

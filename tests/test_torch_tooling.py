@@ -388,3 +388,14 @@ def test_diagnose_tools_run(capsys):
                  "dist to current goal"):
         assert line in text, line
     assert os.path.join("agility", "r5", "model_12000.msgpack") in text
+
+
+def test_count_ops_per_engine_path():
+    """tools/count_ops on the CPU: every engine path issues operations, the
+    per-env paths far fewer than the SoA substep's component-unrolled ones."""
+    from agility_tpu_torch.tools import count_ops
+
+    n = count_ops.count("cpu", num_envs=2)
+    assert set(n) == {"soa", "pgs", "soft", "pgs_contact_frames"}
+    assert all(v > 1000 for v in n.values())
+    assert n["soa"] > 4 * max(n["pgs"], n["soft"]) and n["pgs_contact_frames"] > n["pgs"]
