@@ -37,33 +37,40 @@ PATHS = {"soa": ({}, {}), "pgs": ({"sim.solver": "pgs"}, {}),
          "pgs_contact_frames": ({}, dict(solver="pgs", fast=False))}
 
 
+def ops_of(fn, device="cuda") -> int:
+    """The operations fn() issues: on the card the device kernels (copies
+    and fills included; the device activity alone is traced, and its raw
+    events counted, since building the host-side event tree of a ~63k-op
+    step takes seconds), on the CPU the leaf aten operations that compute."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.device(device).type == "cuda":
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.device_type() == torch.autograd.DeviceType.CUDA
+                   for e in prof.profiler.kineto_results.events())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(e.name.startswith("aten::") and e.name not in NO_COMPUTE
+               and not any(c.name.startswith("aten::") for c in e.cpu_children)
+               for e in prof.events())
+
+
 def count(device="cuda", num_envs=4096, checkpoint=CHECKPOINT):
     """{path: operations of one control step} of play_bbc's env and policy
     (trot at vx 1.0), each path one step after init_state and a warm step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from agility_tpu_torch.cli import play_bbc
 
     args = play_bbc.get_args(["--device", device, "--num_envs", str(num_envs), "--checkpoint",
                               checkpoint, "--mode", "trot", "--vx", "1.0"])
-    cuda = torch.device(device).type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     out = {}
     for path, (overrides, engine) in PATHS.items():
         env, policy, _, hold = play_bbc.build(args, overrides)
         env.engine_cfg = dataclasses.replace(env.engine_cfg, **engine)
         s = env.init_state()
         s, _ = env.step(hold(s), policy(s.obs_buf))
-        with profile(activities=acts) as prof:
-            s, _ = env.step(hold(s), policy(s.obs_buf))
-            if cuda:
-                torch.cuda.synchronize()
-        if cuda:
-            out[path] = sum(e.device_type.name == "CUDA" for e in prof.events())
-        else:
-            out[path] = sum(e.name.startswith("aten::") and e.name not in NO_COMPUTE
-                            and not any(c.name.startswith("aten::") for c in e.cpu_children)
-                            for e in prof.events())
+        out[path] = ops_of(lambda: env.step(hold(s), policy(s.obs_buf)), device)
     return out
 
 

@@ -7,8 +7,9 @@ evaluation (agility_tpu_torch.cli.play_tsc, its teacher resolved by run
 name) and the depth student's (play_tsc --use_camera) — its training paths
 (cli/train_bbc, on the synthetic clips and on clip files through
 --mocap_dir, cli/train_tsc and train_tsc --use_camera), the policy export,
-env-axis data parallelism (two ranks on the card against one process) and
-the 32k tasks through --shard, and checks what comes out.
+env-axis data parallelism (two ranks on the card against one process),
+the 32k tasks through --shard, the bench (agility_tpu_torch/bench.py) and
+the env-layer ablation tools, and checks what comes out.
 
     python3 chip_smoke.py            # needs one CUDA card; exits nonzero without one
 
@@ -41,9 +42,11 @@ Phases (any failure exits nonzero and prints no result line):
                under the windows > 0, and the same at the depth student's N = 256;
                and the BBC's rough grid (one surface, no weights), N = 4096 windows at the spawn points and, for every
                other env, anywhere on or off the map, so that origins clamp at
-               the edges.  Two calls give the same bits.  The bytes count each
-               distinct grid cell under the windows once; beside them, the
-               distinct 32-byte sectors those cells touch, per surface.  The
+               the edges; the same on the bench's BBC grid (bench.bbc_config:
+               the 4 x 4 terrain with a 10 m border, 600 x 600 cells).  Two
+               calls give the same bits.  The bytes count each distinct grid
+               cell under the windows once; beside them, the distinct
+               32-byte sectors those cells touch, per surface.  The
                launch parameters and each surface's route (staged by TMA or
                cp.async, or plain loads) are printed.
   4. K3      — the scandots against patch.measure_scandots_batch on that world,
@@ -51,6 +54,14 @@ Phases (any failure exits nonzero and prints no result line):
                window 34: exactly equal, two calls the same bits.  The bytes count each distinct grid node the scans
                read once; sectors, launch parameters and routes (a gather)
                as for K2.
+  4a. bench — agility_tpu_torch/bench.py's bench_bbc (4096 envs on its
+               600 x 600 config) and bench_tsc (6144 envs on 64 courses), each
+               one warm and one timed iteration with the fast preload: each
+               line has the root bench's keys, finite values > 0, and its
+               value and vs_baseline are the root bench's rounding of the
+               measured rate; launches K1 4 and K2 1 a control step (the
+               env's init_state step included), K3 1 a step on the TSC line
+               and 0 on the BBC's.
   5. parity  — one BBC control step of a 64-env batch on the card against the
                same step on the CPU (plain versions), from one state.
   6. TSC parity — one TSC env step of 64 envs (8 courses) on the card against the
@@ -58,7 +69,7 @@ Phases (any failure exits nonzero and prints no result line):
                (active ceiling contacts, printed); envs that the step resets are
                compared on their pre-reset (terminal) features, within 1e-3.
   7. BBC slice — play_bbc at 4096 envs on the rough-terrain Go2LocomotionCfg with
-               logs/bbc_r5/bbc_15k.msgpack for 120 control steps (trot, vx 1.0)
+               logs/bbc_r5/bbc_15k.msgpack for 60 control steps (trot, vx 1.0)
                and --gait_bands on the port's assets/gait_bands_real.json; K1
                launches = substeps run, K2 launches = control steps + 1, every
                state finite, median base height over the terrain in [0.15,
@@ -87,7 +98,7 @@ Phases (any failure exits nonzero and prints no result line):
                tests/test_soa.py's tolerances, with the launches it must make.
   7c. BBC per-env slice — play_bbc's build and rollout (sim.solver set through
                its `overrides` keyword) at 4096 envs, bbc_15k, trot at vx 1.0,
-               100 control steps, twice: solver pgs (the per-env Jacobi solve
+               50 control steps, twice: solver pgs (the per-env Jacobi solve
                through K1) and soft.  K1 launches = substeps (pgs) or 0 (soft),
                K2 = steps + 1, finite states, median base height over the
                terrain in [0.15, 0.45] m; env-steps/s, device ops per control
@@ -100,7 +111,7 @@ Phases (any failure exits nonzero and prints no result line):
                resolved through --log_root/--proj_name/--exptid (a temporary
                root whose agility/r5 links logs/agility/r5/model_12000.msgpack;
                the weights loaded must equal that file's) and the frozen BBC
-               logs/bbc_r5/bbc_final.msgpack for 40 control steps; K1 launches =
+               logs/bbc_r5/bbc_final.msgpack for 20 control steps; K1 launches =
                4 x (steps + 1), K2 = K3 = steps + 1, every state finite, median
                base height over the folded floor in [0.15, 0.45] m.
   9. train parity — one BBC train iteration of 64 envs (T = 8, the rough
@@ -185,7 +196,7 @@ Phases (any failure exits nonzero and prints no result line):
                iteration under torch.profiler.
  17. vision play — cli/play_tsc --use_camera at 256 envs on 64 courses
                with that checkpoint, the teacher's estimator and the frozen
-               BBC for 20 control steps: K1 launches = 4 x (steps + 1), K2 =
+               BBC for 10 control steps: K1 launches = 4 x (steps + 1), K2 =
                K3 = steps + 1, every state finite, median base height over
                the folded floor in [0.15, 0.45] m, env-steps/s; then two
                steps under torch.profiler.
@@ -213,9 +224,17 @@ Phases (any failure exits nonzero and prints no result line):
                timed, launches K1 96 / K2 24 / K3 24, priv_reg_counter 2;
                then K1 (64 envs pressed into the roof), K2 and K3 at N =
                32768 on the 256-course world.
-The line before the kernels' JSON record gives the script's total wall
-time; the line before the last is the kernels' JSON record; the last line
-is the device record.
+ 21. env ablation — tools/bench_env_ablate and bench_env_ablate_tsc at the
+               bench's widths, T = 2 steps, one rep (last: their device-op
+               counts run torch.profiler, which slows the host's later
+               launches): every variant's rewards finite; in each full step
+               K1 4 and K2 1 a step, K3 1 a step on the TSC and 0 on the BBC;
+               K3 0 under "no _measure_heights" and "no
+               _compute_observations" (the stub took effect).
+Each phase prints its own seconds when it ends, and a line before the
+total gives them all as JSON.  The line before the kernels' JSON record
+gives the script's total wall time; the line before the last is the
+kernels' JSON record; the last line is the device record.
 """
 from __future__ import annotations
 
@@ -241,14 +260,14 @@ JAX_GAIT_REPORT = os.path.join(ROOT, "logs", "bbc_r5", "gait_report_28k.txt")
 KERNELS = ("contact_lcp", "terrain_window", "scandots")   # csrc/<name>.cu
 K1_RTOL = 1e-4
 NUM_ENVS = 4096     # the BBC path's width
-STEPS = 120         # control steps of the BBC slice phase (cut from 250 for the script's time)
+STEPS = 60          # control steps of the BBC slice phase (cut from 250, then 120, for time)
 TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
-TSC_STEPS = 40      # control steps of the TSC slice phase (cut from 200, then 100, for time)
+TSC_STEPS = 20      # control steps of the TSC slice phase (cut from 200, 100, then 40, for time)
 TRAIN_ITERS = 1     # iterations of the BBC, TSC and vision train phases (cut from 3 for
 #                     the 32k phases' time, then from 2 for the per-env phases')
 BIG_ENVS = 32768    # the 32k tasks' width (go2_locomotion_32k, go2_32k), one iteration each
 DDP_ENVS = 64       # DDP parity: 2 gloo ranks on one card against one process
-PER_ENV_STEPS = 100  # control steps of each BBC per-env slice (pgs, soft)
+PER_ENV_STEPS = 50   # control steps of each BBC per-env slice (pgs, soft; cut from 100 for time)
 PGS_STEPS = 10      # control steps of the contact-frame PGS run at the BBC's width
 # the per-env engine's variants in the parity phase: (label, EngineConfig
 # overrides on the BBC env's, K1 launches per substep, K2 per control step)
@@ -261,7 +280,12 @@ PER_ENV_VARIANTS = (
     ("grid_direct", dict(soa=False, patch_size=0), 1, 0),
     ("pallas_contact", dict(pallas_contact=True), 1, 1))
 VISION_ENVS = 256   # the depth student's width (DepthCfg.camera_num_envs), on 64 courses
-VISION_STEPS = 20   # control steps of the vision play phase (cut from 50 for time)
+VISION_STEPS = 10   # control steps of the vision play phase (cut from 50, then 20, for time)
+# the bench and env-ablation phases: agility_tpu_torch/bench.py's lines with one
+# warm and one timed iteration and the fast preload; the ablation tools at T
+# steps, one rep
+BENCH_ITERS = 1
+ABLATE_T = 2
 # the refresh images, card vs CPU (tests/test_torch_vision.py's rule): the
 # pixels raycast.crossing_mask leaves out are counted; the rest are held at
 # DEPTH_TOL m (a grazing ray's secant step magnifies a clearance's float32
@@ -546,13 +570,20 @@ def course_case(n, seed=0, env=None):
 def k2_cases(bbc):
     """K2's inputs at every path's shape, (label, grid, centres, size,
     weights): the TSC's (course world, weights, ceiling, N = 6144 windows of
-    32 on goal waypoints), the depth student's (the same at N = 256) and the
+    32 on goal waypoints), the depth student's (the same at N = 256), the
     BBC's (`bbc`: its env and initial states; one surface, no weights,
-    every other centre anywhere on the map or up to 1 m off it)."""
+    every other centre anywhere on the map or up to 1 m off it) and the
+    same on the bench's BBC grid (agility_tpu_torch/bench.py:bbc_config, the
+    4 x 4 terrain with a 10 m border: 600 x 600 cells, N = 4096)."""
+    from agility_tpu_torch.bench import bbc_config
+    from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
+
     grid, c, w, _, _, _ = course_case(TSC_ENVS)
     vgrid, vc, vw, _, _, _ = course_case(VISION_ENVS)
+    benv = Go2LocomotionEnv(bbc_config(NUM_ENVS), "cuda", seed=1)
     return [("tsc", grid, c, 32, w), ("tsc_vision", vgrid, vc, 32, vw),
-            bbc_window_case("bbc", *bbc)]
+            bbc_window_case("bbc", *bbc),
+            bbc_window_case("bbc_bench", benv, benv.init_state().sim, benv.params)]
 
 
 def bbc_window_case(label, env, s, params):
@@ -714,6 +745,82 @@ def phase_k3(cases):
             raise SystemExit(f"K3 {label}: the scans cross no layer or lever cell")
         rows[label] = dict(max_abs_err=err, cells=cells, sectors=sectors,
                            routes=cfg["routes"], **t)
+    return rows
+
+
+def phase_bench(num_envs, tsc_envs, iters):
+    """agility_tpu_torch/bench.py's two lines on the card at full width
+    (bench_bbc at `num_envs` on the bench's BBC config, bench_tsc at
+    `tsc_envs` on 64 courses), `iters` timed iterations after one warm
+    one, the fast preload: each line has the root bench's keys with finite
+    values > 0 and its value and vs_baseline are the root bench's accounting
+    of the measured mean; K1 launched 4 times and K2 once a control step
+    (the env's init_state step and every rollout step), K3 once a step on
+    the TSC line and never on the BBC's.  Returns {path: launches}."""
+    from agility_tpu_torch import bench
+
+    T = bench.AlgoCfg().num_steps_per_env
+    steps = T * (iters + 1) + 1
+    launches = {}
+    for path, run, tsc in (
+            ("bench_bbc", lambda: bench.bench_bbc("cuda", num_envs, iters, fast=True), False),
+            ("bench_tsc", lambda: bench.bench_tsc("cuda", tsc_envs, iters), True)):
+        _counts_zero()
+        out, dt = run()
+        launches[path] = _counts()
+        rate = T * (tsc_envs if tsc else num_envs) / dt
+        base = bench.BASELINES[out["metric"]]
+        want = dict(contact_lcp=4 * steps, terrain_window=steps, scandots=steps if tsc else 0)
+        print(f"bench {path}: {json.dumps(out)}; {dt:.3f} s a timed iteration; launches "
+              f"{launches[path]} (want {want}, {steps} control steps)", flush=True)
+        keys = {"metric", "value", "unit", "vs_baseline"}
+        if not keys <= set(out) or out["unit"] != "env-steps/s":
+            raise SystemExit(f"bench {path}: the line lacks the root bench's keys")
+        if not (np.isfinite(out["value"]) and out["value"] > 0 and out["vs_baseline"] > 0
+                and all(np.isfinite(t) and t > 0 for t in out["iter_ms"])):
+            raise SystemExit(f"bench {path}: a value is not finite and positive")
+        if out["value"] != round(rate, 1) or out["vs_baseline"] != round(rate / base, 3):
+            raise SystemExit(f"bench {path}: value or vs_baseline is not the root bench's "
+                             "accounting of the measured mean")
+        if launches[path] != want:
+            raise SystemExit(f"bench {path}: launches {launches[path]}, want {want}")
+    return launches
+
+
+def phase_env_ablation(num_envs, tsc_envs, T):
+    """The env-layer ablation tools (agility_tpu_torch/tools/bench_env_ablate
+    and bench_env_ablate_tsc) at full width, `T` steps, one rep: every
+    variant's rewards finite; K1 4 and K2 1 a step in each full step, K3
+    once a step in the TSC's full step and never under "no
+    _measure_heights" or "no _compute_observations" (the stub took
+    effect).  Returns {tool: rows}."""
+    from agility_tpu_torch import bench
+    from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
+    from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
+    from agility_tpu_torch.tools import bench_env_ablate as bbc_tool
+    from agility_tpu_torch.tools import bench_env_ablate_tsc as tsc_tool
+
+    rows = {}
+    for name, tool, make in (
+            ("bbc", bbc_tool, lambda: Go2LocomotionEnv(bench.bbc_config(num_envs), "cuda")),
+            ("tsc", tsc_tool, lambda: Go2AgilityEnv(bench.tsc_config(tsc_envs), "cuda"))):
+        print(f"env ablation {name}: {num_envs if name == 'bbc' else tsc_envs} envs, T = {T}, "
+              "1 rep", flush=True)
+        rows[name], _ = tool.ablate(make(), T, 1)
+        by = {r["label"]: r for r in rows[name]}
+        bad = [r["label"] for r in rows[name] if not r["finite"]]
+        if bad:
+            raise SystemExit(f"env ablation {name}: non-finite rewards under {bad}")
+        full = by["full step"]["launches"]
+        want = dict(contact_lcp=4, terrain_window=1, scandots=1 if name == "tsc" else 0)
+        if full != want:
+            raise SystemExit(f"env ablation {name}: full step launches {full} a step, want {want}")
+        if name == "tsc":
+            k3 = {k: by[k]["launches"]["scandots"]
+                  for k in ("no _measure_heights", "no _compute_observations")}
+            print(f"env ablation tsc: K3 launches a step {k3} (full step 1)", flush=True)
+            if any(k3.values()):
+                raise SystemExit("env ablation tsc: K3 launched under a stub that removes it")
     return rows
 
 
@@ -885,12 +992,9 @@ def _counts_zero():
 
 
 def _counts():
-    from agility_tpu_torch.kernels import contact_lcp as k1
-    from agility_tpu_torch.kernels import scandots as k3
-    from agility_tpu_torch.kernels import terrain_window as k2
+    from agility_tpu_torch.kernels import launch_counts
 
-    return dict(contact_lcp=k1.contact_lcp.launches, terrain_window=k2.terrain_window.launches,
-                scandots=k3.scandots.launches)
+    return launch_counts()
 
 
 def phase_slice(num_envs, steps):
@@ -930,18 +1034,21 @@ def phase_slice(num_envs, steps):
 
 def step_profile(label, step, s, step_ms, steps=2):
     """Device ops and busy time per control step (kernel, copy and fill
-    durations; counted as profile_slice.py counts them) of `steps` calls
+    durations; counted as tools/count_ops.ops_of counts them) of `steps` calls
     s = step(s) under torch.profiler, against the unprofiled step time
     `step_ms`.  A reading, not a gate."""
     from torch.profiler import ProfilerActivity, profile as trace
 
+    # the device activity alone, its raw events read: tracing the host's
+    # ~63k ops a step and building their event tree took seconds a step
     torch.cuda.synchronize()
-    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             s = step(s)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.device_time_total for e in dev) / 1e3 / steps
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.end_ns() - e.start_ns() for e in dev) / 1e6 / steps
     r = dict(ops=len(dev) / steps, busy_ms=busy_ms, step_ms=step_ms, busy=busy_ms / step_ms)
     print(f"{label} profile: {r['ops']:.0f} device ops per control step, device busy "
           f"{busy_ms:.2f} ms per step, {100 * r['busy']:.1f}% of the unprofiled "
@@ -1324,7 +1431,7 @@ def phase_tsc_train_parity(num_envs=64, courses=8, steps=8):
         raise SystemExit("TSC train parity: a train stage on the card disagrees with the CPU's")
 
 
-def timed_training(label, cli, argv, num_envs, probe_steps=8):
+def timed_training(label, cli, argv, num_envs, probe_steps=4):
     """Build a runner through `cli`'s build (timed), time the env step alone
     (`probe_steps` steps; 0 skips it), train through `cli`'s train with a
     CUDA event at every stage mark and the host clock, synchronised, at
@@ -2283,7 +2390,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
 
-    rows, t = {}, time.perf_counter()
+    rows, seconds, t = {}, {}, time.perf_counter()
     bbc = bbc_case()
     tmp_root = _log_root()
     try:
@@ -2293,6 +2400,7 @@ def main():
                 ("K2", lambda: phase_k2(k2_cases(bbc))),
                 ("K3", lambda: phase_k3([("tsc", k3_case(TSC_ENVS)),
                                          ("tsc_vision", k3_case(VISION_ENVS))])),
+                ("bench", lambda: phase_bench(NUM_ENVS, TSC_ENVS, BENCH_ITERS)),
                 ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
                 ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
                 ("K1 per-env", lambda: phase_k1_per_env(*bbc)),
@@ -2314,9 +2422,14 @@ def main():
                 ("vision train", lambda: phase_vision_train(tmp_root, TRAIN_ITERS)),
                 ("vision play", lambda: phase_vision_play(VISION_ENVS, VISION_STEPS,
                                                           rows["vision train"][1])),
-                ("BBC train 32k", phase_train_32k), ("TSC train 32k", phase_tsc_train_32k)):
+                ("BBC train 32k", phase_train_32k), ("TSC train 32k", phase_tsc_train_32k),
+                # last: its device-op counts (torch.profiler) slow the host's later launches
+                ("env ablation", lambda: phase_env_ablation(NUM_ENVS, TSC_ENVS, ABLATE_T))):
+            t_phase = time.perf_counter()
             rows[name] = phase()
-            print(f"[{name} done at {time.perf_counter() - t:.1f} s]", flush=True)
+            seconds[name] = time.perf_counter() - t_phase
+            print(f"[{name} done at {time.perf_counter() - t:.1f} s; the phase took "
+                  f"{seconds[name]:.1f} s]", flush=True)
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
 
@@ -2332,7 +2445,8 @@ def main():
                  bbc_train=rows["BBC train"], bbc_mocap_train=rows["BBC mocap"],
                  tsc_train=rows["TSC train"],
                  tsc_vision_train=rows["vision train"][0], tsc_vision_play=rows["vision play"],
-                 bbc_train_32k=rows["BBC train 32k"][0], tsc_train_32k=rows["TSC train 32k"][0])
+                 bbc_train_32k=rows["BBC train 32k"][0], tsc_train_32k=rows["TSC train 32k"][0],
+                 **rows["bench"])
     keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share")
     kernels = []
     # each kernel's headline numbers are those of its first shape: K1 at the
@@ -2348,6 +2462,8 @@ def main():
             **{k: r[head][k] for k in keys}, library_ms=None,
             by_shape={shape: {k: v[k] for k in keys + ("sectors", "routes") if k in v}
                       for shape, v in r.items()}))
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()}),
+          flush=True)
     print(f"chip_smoke: every phase passed; total wall time {time.perf_counter() - t_script:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -329,3 +329,48 @@ def test_two_ranks_on_one_card_match_one(card):
                                    one["metrics"]["rollout/r_total"], rtol=1e-4)
         for part in two:
             assert all(part["launches"][k] > 0 for k in launched), part["launches"]
+
+
+@pytest.mark.cuda
+def test_bench_lines_on_card(card):
+    """agility_tpu_torch/bench.py's two lines at a small width on the card
+    (64 envs; the TSC on 8 courses), one timed iteration: the root bench's
+    keys, finite values > 0, the card named by nvidia-smi."""
+    import dataclasses
+    import math
+
+    from agility_tpu_torch import bench
+
+    cfg = bench.tsc_config(64)
+    cfg = dataclasses.replace(cfg, obstacle=dataclasses.replace(cfg.obstacle, courses=8))
+    for (out, dt), metric in ((bench.bench_bbc("cuda", 64, iters=1, fast=True),
+                               "env_steps_per_sec"),
+                              (bench.bench_tsc("cuda", iters=1, cfg=cfg),
+                               "tsc_env_steps_per_sec")):
+        assert out["metric"] == metric and out["unit"] == "env-steps/s"
+        assert out["value"] == round(24 * 64 / dt, 1) > 0 and math.isfinite(out["value"])
+        assert out["vs_baseline"] == round(24 * 64 / dt / bench.BASELINES[metric], 3)
+        assert len(out["iter_ms"]) == 1 and out["iter_ms"][0] > 0
+        assert out["device"].startswith(torch.cuda.get_device_name(0))
+
+
+@pytest.mark.cuda
+def test_ablation_variant_on_card(card):
+    """One ablation variant on the card ("no _measure_heights", the TSC at
+    64 envs on 8 courses, T = 2): the scandot kernel is not launched, the
+    other two are, and the step's device ops are counted."""
+    import dataclasses
+
+    from agility_tpu_torch import bench
+    from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
+    from agility_tpu_torch.tools import bench_env_ablate, bench_env_ablate_tsc
+
+    cfg = bench.tsc_config(64)
+    env = Go2AgilityEnv(dataclasses.replace(
+        cfg, obstacle=dataclasses.replace(cfg.obstacle, courses=8)), "cuda")
+    label, patches = bench_env_ablate_tsc.variants(env)[2]
+    assert label == "no _measure_heights"
+    begin = bench_env_ablate.start(env)
+    row = bench_env_ablate.bench(env, label, begin, 2, 1, **patches)
+    assert row["finite"] and row["launches"] == dict(contact_lcp=4, terrain_window=1, scandots=0)
+    assert bench_env_ablate.device_ops(env, begin, **patches) > 1000

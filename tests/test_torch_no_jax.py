@@ -15,7 +15,9 @@ of 4 envs through cli/train_bbc --mocap_dir on clip files written in the
 reference's layout; an eighth trains the BBC for one iteration of 8 envs
 split over two gloo ranks that torch.distributed.run starts, through
 cli/train_bbc --shard, with the modules blocked in every rank by a
-sitecustomize on the ranks' path."""
+sitecustomize on the ranks' path; a ninth runs the bench's main on the CPU
+at 8 envs (the BBC line, one warm and one timed iteration)."""
+import json
 import os
 import subprocess
 import sys
@@ -203,6 +205,22 @@ MOCAP_TRAIN_SCRIPT = textwrap.dedent("""
 """)
 
 
+BENCH_SCRIPT = textwrap.dedent("""
+    import json, os, sys
+    sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+    sys.modules["agility_tpu"] = None
+    import torch
+    from agility_tpu_torch import bench
+    torch.set_num_threads(1)   # small ops: one thread is faster and spares the suite's cores
+    os.environ.update(BENCH_ENVS="8", BENCH_ITERS="1", BENCH_FAST="1", BENCH_TSC="0")
+    bench.main(["--device", "cpu"])
+    assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
+                                                                  "agility_tpu."))
+                   for k, v in sys.modules.items() if v is not None)
+    print("ok")
+""")
+
+
 BLOCK_SITE = textwrap.dedent("""
     import sys
     sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
@@ -245,6 +263,18 @@ def test_bbc_play_compare_gait_without_jax():
 
 def test_bbc_train_mocap_dir_without_jax():
     _run(MOCAP_TRAIN_SCRIPT)
+
+
+def test_bench_main_without_jax():
+    """bench.main on the CPU at 8 envs (the BBC line, one timed iteration)."""
+    res = subprocess.run([sys.executable, "-c", BENCH_SCRIPT], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                             filter(None, [ROOT, os.environ.get("PYTHONPATH")]))},
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    line = json.loads(res.stdout.splitlines()[0])
+    assert line["metric"] == "env_steps_per_sec" and line["value"] > 0 and line["device"] == "cpu"
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_bbc_train_shard_two_ranks_without_jax(tmp_path):
