@@ -40,6 +40,7 @@ Env knobs (the root bench's, with its defaults):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -106,11 +107,16 @@ def device_label(device: torch.device) -> str:
     return out.stdout.strip()
 
 
-def time_iterations(alg, ts, es, disc_hist, iters: int) -> Tuple[float, List[float]]:
+def time_iterations(alg, ts, es, disc_hist, iters: int,
+                    profile: Optional[str] = None) -> Tuple[float, List[float]]:
     """One warm train iteration at it = 1, then `iters` timed ones at it =
     i + 2 (the root bench's indices: they decide DAgger, it %
     dagger_update_freq).  Returns (mean seconds a timed iteration on the
-    host clock, synchronised at both ends; each timed iteration's ms)."""
+    host clock, synchronised at both ends; each timed iteration's ms).
+    With `profile` (a path) the timed iterations run under torch.profiler,
+    whose chrome trace is written there: the device's activity on the card
+    (a step issues ~63k kernels; the host's operators would double the
+    trace), the host's operators on the CPU."""
     device = alg.device
     cuda = device.type == "cuda"
 
@@ -129,13 +135,23 @@ def time_iterations(alg, ts, es, disc_hist, iters: int) -> Tuple[float, List[flo
     ts, es, disc_hist, _ = alg.train_iteration(ts, es, disc_hist, 1)
     sync()
     _beat(f"first iteration done ({time.perf_counter() - t0:.1f}s); measuring {iters} iters")
-    t0 = time.perf_counter()
-    stamps = [stamp()]
-    for i in range(iters):
-        ts, es, disc_hist, _ = alg.train_iteration(ts, es, disc_hist, i + 2)
-        stamps.append(stamp())
-    sync()
-    dt = (time.perf_counter() - t0) / iters
+    prof = contextlib.nullcontext()
+    if profile:
+        from torch.profiler import ProfilerActivity
+
+        prof = torch.profiler.profile(
+            activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
+    with prof:
+        t0 = time.perf_counter()
+        stamps = [stamp()]
+        for i in range(iters):
+            ts, es, disc_hist, _ = alg.train_iteration(ts, es, disc_hist, i + 2)
+            stamps.append(stamp())
+        sync()
+        dt = (time.perf_counter() - t0) / iters
+    if profile:
+        prof.export_chrome_trace(profile)
+        _beat(f"trace written to {profile}")
     iter_ms = [a.elapsed_time(b) if cuda else (b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     return dt, iter_ms
 
@@ -178,12 +194,14 @@ def bench_bbc(device="cuda", num_envs: int = 4096, iters: int = 5, fast: bool = 
 
 
 def bench_tsc(device="cuda", num_envs: int = 6144, iters: int = 5,
-              cfg: Optional[Go2AgilityCfg] = None) -> Tuple[dict, float]:
+              cfg: Optional[Go2AgilityCfg] = None, algo_cfg=None,
+              profile: Optional[str] = None) -> Tuple[dict, float]:
     """The TSC teacher's training line (bench.py:169-216): the TSC policy,
     set_commands, a fresh frozen BBC (drawn by torch from seed 0: not the
     JAX package's weights), the obstacle-course env and the hybrid PPO
-    update; `cfg` replaces tsc_config(num_envs).  Returns (the line, mean
-    seconds a timed iteration)."""
+    update; `cfg` replaces tsc_config(num_envs), `algo_cfg` TscAlgoCfg(),
+    `profile` as time_iterations'.  Returns (the line, mean seconds a
+    timed iteration)."""
     from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
     from agility_tpu_torch.io.checkpoint import load_bbc_frozen
     from agility_tpu_torch.learn.ppo_tsc import TscAlgoCfg, TscPPO
@@ -191,13 +209,13 @@ def bench_tsc(device="cuda", num_envs: int = 6144, iters: int = 5,
     device = torch.device(device)
     cfg = cfg or tsc_config(num_envs)
     env = Go2AgilityEnv(cfg, device, seed=1)
-    alg = TscPPO(env, load_bbc_frozen(None, seed=0), TscAlgoCfg())
+    alg = TscPPO(env, load_bbc_frozen(None, seed=0), algo_cfg or TscAlgoCfg())
     _beat("tsc env+alg built")
     ts = alg.init_train_state()
     es = env.init_state()
     dh = es.disc_obs[:, None].repeat(1, 2, 1)      # two frames, as bench.py:193
     _beat("tsc states initialized")
-    dt, iter_ms = time_iterations(alg, ts, es, dh, iters)
+    dt, iter_ms = time_iterations(alg, ts, es, dh, iters, profile)
     _beat(f"tsc measured {dt * 1e3:.1f} ms/iter")
     return line("tsc_env_steps_per_sec", alg.cfg.num_steps_per_env * cfg.env.num_envs, dt,
                 device, iter_ms), dt

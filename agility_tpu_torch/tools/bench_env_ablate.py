@@ -7,10 +7,14 @@ env layer's cost outside physics.
     python -m agility_tpu_torch.tools.bench_env_ablate          # BENCH_ENVS=4096, one card
     BENCH_ENVS=8 python -m agility_tpu_torch.tools.bench_env_ablate --device cpu
 
-Each variant acts with tanh(obs_buf[:, :12]) for T = 48 steps, three
-times, after one untimed pass of T steps (the JAX tool's compile pass:
-here the first calls and the stubs' shapes), and prints ms/step
-(synchronised host clock) and, on the card, the device operations one step
+Each variant acts with tanh(obs_buf[:, :12]) for T = 48 steps a round,
+after one untimed pass of T steps (the JAX tool's compile pass: here the
+first calls and the stubs' shapes), in 5 rounds interleaved over the
+variants (tools/timing.py: every variant once a round, in turn, each
+continuing its own state and generator; the host drifts more over a run
+than a piece weighs, so only interleaved rounds resolve the pieces), and
+prints ms/step (the median round on the synchronised host clock, with the
+rounds' min and max) and, on the card, the device operations one step
 issues, counted with torch.profiler as tools/count_ops.py counts them (the
 step is host-bound, so ms alone mix the piece's cost with the host's speed;
 on the CPU: not measured).  Every variant is timed before any is
@@ -20,7 +24,8 @@ row as JSON.
 
 Every variant starts from the same state and the same generator state,
 and patches one env: a stubbed method is an instance attribute, removed
-again when the variant ends (a variant cannot leak into the next).  A stub
+again when each of the variant's rounds ends (a variant cannot leak into
+the next).  A stub
 returns zeros of the shapes and dtypes the real method returns (the real
 method runs once, at the stub's first call: the port's jax.eval_shape),
 except the JAX tool's two pass-throughs: `_reset_where` returns the state
@@ -28,16 +33,16 @@ and `_center_root_height` the world z.
 """
 from __future__ import annotations
 
-import argparse
 import contextlib
 import dataclasses
 import json
 import os
-import time
 
 import torch
 
-T, REPS = 48, 3
+from agility_tpu_torch.tools import timing
+
+T, REPS = 48, timing.ROUNDS
 
 
 def act(s):
@@ -90,39 +95,45 @@ def start(env):
     return s, env.gen.get_state()
 
 
+def variant_run(env, begin, T, **patches):
+    """One round of a variant: `env` with `patches` (patched()) stepped T
+    steps from where the variant's last round ended (from `begin`,
+    start(), at first), the env generator's state its own.  Returns
+    (run, its state: s, gen, rew)."""
+    st = dict(s=begin[0], gen=begin[1], rew=None)
+
+    def run():
+        env.gen.set_state(st["gen"])
+        with patched(env, **patches), torch.no_grad():
+            s = st["s"]
+            for _ in range(T):
+                s, out = env.step(s, act(s))
+        st.update(s=s, gen=env.gen.get_state(), rew=out.rew)
+    return run, st
+
+
+def bench_all(env, labelled, begin, T=T, reps=REPS):
+    """Every (label, patches) of `labelled` timed in interleaved rounds
+    (tools/timing.py): an untimed pass of T steps each, then `reps` rounds
+    of T steps of each variant in turn, each continuing its own state.
+    Prints and returns the rows: ms a step (the median round), the untimed
+    pass's seconds, the kernel launches a timed step, whether the rewards
+    stayed finite, and `ops` (None; run_variants() counts them)."""
+    runs = [(label, *variant_run(env, begin, T, **patches)) for label, patches in labelled]
+    got = timing.interleaved([timing.Variant(label, run, per=T) for label, run, _ in runs],
+                             env.device, reps)
+    rows = []
+    for r, (label, _, st) in zip(got, runs):
+        print(f"{label:<28} {r['ms']:8.2f} ms/step [{r['ms_min']:.2f}, {r['ms_max']:.2f}]   "
+              f"(first pass {r['first_s']:.1f}s)", flush=True)
+        rows.append(dict(label=label, ms=r["ms"], ops=None, first_s=r["first_s"],
+                         launches=r["launches"], finite=bool(torch.isfinite(st["rew"]).all())))
+    return rows
+
+
 def bench(env, label, begin, T=T, reps=REPS, **patches):
-    """One variant timed: `env` with `patches` (patched()) stepped from
-    `begin` (start()) for an untimed pass of T steps, then `reps` timed
-    passes.  Prints and returns its row: ms a step, the untimed pass's
-    seconds, the kernel launches a timed step, whether the rewards stayed
-    finite, and `ops` (None; run_variants() counts them)."""
-    from agility_tpu_torch.kernels import launch_counts
-
-    cuda = env.device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-
-    def run(s):
-        for _ in range(T):
-            s, out = env.step(s, act(s))
-        return s, out.rew
-
-    s, gen_state = begin
-    env.gen.set_state(gen_state)
-    with patched(env, **patches), torch.no_grad():
-        t0 = time.perf_counter()
-        s, r = run(s)
-        sync()
-        first_s = time.perf_counter() - t0
-        before = launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            s, r = run(s)
-        sync()
-        dt = (time.perf_counter() - t0) / reps / T
-        launches = {k: (v - before[k]) / (reps * T) for k, v in launch_counts().items()}
-    print(f"{label:<28} {dt * 1e3:8.2f} ms/step   (first pass {first_s:.1f}s)", flush=True)
-    return dict(label=label, ms=dt * 1e3, ops=None, first_s=first_s, launches=launches,
-                finite=bool(torch.isfinite(r).all()))
+    """One variant timed alone (bench_all())."""
+    return bench_all(env, [(label, patches)], begin, T, reps)[0]
 
 
 def device_ops(env, begin, **patches):
@@ -141,14 +152,14 @@ def device_ops(env, begin, **patches):
 
 def run_variants(env, variants, T=T, reps=REPS):
     """Every (label, patches) of `variants(env)` timed from the same start
-    (bench()); then, on the card, each one's device operations counted and
+    (bench_all()); then, on the card, each one's device operations counted and
     the full step timed once more.  The counts come after all timing: a
     torch.profiler session slows the host's later launches, and the last
     full step measures by how much.  Prints the table; returns (rows, that
     last full step's row, or None on the CPU)."""
     begin = start(env)
     vs = variants(env)
-    rows = [bench(env, label, begin, T, reps, **patches) for label, patches in vs]
+    rows = bench_all(env, vs, begin, T, reps)
     again = None
     if env.device.type == "cuda":
         for row, (_, patches) in zip(rows, vs):
@@ -183,17 +194,8 @@ def run_tool(argv, make_env, ablate_fn, default_envs):
     """A tool's entry point: --device (the card unless asked), BENCH_ENVS
     envs (`default_envs` unset), make_env(n, device), ablate_fn(env), then
     the rows as one JSON line."""
-    from agility_tpu_torch.bench import device_label
-
-    p = argparse.ArgumentParser(description="env-layer cost attribution by ablation")
-    p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but torch sees no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device, label = timing.open_device(argv, "env-layer cost attribution by ablation")
     n = int(os.environ.get("BENCH_ENVS", str(default_envs)))
-    label = device_label(device)
     print(f"{n} envs on {label}", flush=True)
     rows, again = ablate_fn(make_env(n, device))
     print(json.dumps({"device": label, "num_envs": n, "T": T, "reps": REPS, "rows": rows,

@@ -8,13 +8,15 @@ name) and the depth student's (play_tsc --use_camera) — its training paths
 (cli/train_bbc, on the synthetic clips and on clip files through
 --mocap_dir, cli/train_tsc and train_tsc --use_camera), the policy export,
 env-axis data parallelism (two ranks on the card against one process),
-the 32k tasks through --shard, the bench (agility_tpu_torch/bench.py) and
-the env-layer ablation tools, and checks what comes out.
+the 32k tasks through --shard, the bench (agility_tpu_torch/bench.py), the
+window A/B (tools/bench_windows: the window copies D and E), the
+layer-timing tools and the env-layer ablation tools, and checks what comes
+out.
 
     python3 chip_smoke.py            # needs one CUDA card; exits nonzero without one
 
 Phases (any failure exits nonzero and prints no result line):
-  1. build   — nvcc builds csrc/{contact_lcp,terrain_window,scandots}.cu for
+  1. build   — nvcc builds csrc/{contact_lcp,terrain_window,scandots,window_dma}.cu for
                sm_90a, one process per source, all at once (timed).
   2. K1      — the contact LCP kernel against contact_lcp_reference on one card,
                inputs built by the port's own SoA code from a real batch of
@@ -54,7 +56,16 @@ Phases (any failure exits nonzero and prints no result line):
                window 34: exactly equal, two calls the same bits.  The bytes count each distinct grid node the scans
                read once; sectors, launch parameters and routes (a gather)
                as for K2.
-  4a. bench — agility_tpu_torch/bench.py's bench_bbc (4096 envs on its
+  4a. window DMA — D and E (csrc/window_dma.cu: the per-env window copy
+               and the band-stack slab copy of the window A/B) against their
+               plain versions at N = 6144 on tools/bench_windows.py's 1800 x
+               1800 world, at its three shapes (float32 K 5 P 32, bfloat16
+               K 3 P 56 and P 36): bit-exact, two calls the same bits, each
+               call counted, and equal to the one indexing call that computes
+               the same function; warm, lead, flushed and host times, the
+               plain version's and the indexing call's, bytes (the distinct
+               cells or stack rows read), bound and share.
+  4b. bench — agility_tpu_torch/bench.py's bench_bbc (4096 envs on its
                600 x 600 config) and bench_tsc (6144 envs on 64 courses), each
                one warm and one timed iteration with the fast preload: each
                line has the root bench's keys, finite values > 0, and its
@@ -69,7 +80,7 @@ Phases (any failure exits nonzero and prints no result line):
                (active ceiling contacts, printed); envs that the step resets are
                compared on their pre-reset (terminal) features, within 1e-3.
   7. BBC slice — play_bbc at 4096 envs on the rough-terrain Go2LocomotionCfg with
-               logs/bbc_r5/bbc_15k.msgpack for 60 control steps (trot, vx 1.0)
+               logs/bbc_r5/bbc_15k.msgpack for 40 control steps (trot, vx 1.0)
                and --gait_bands on the port's assets/gait_bands_real.json; K1
                launches = substeps run, K2 launches = control steps + 1, every
                state finite, median base height over the terrain in [0.15,
@@ -98,7 +109,7 @@ Phases (any failure exits nonzero and prints no result line):
                tests/test_soa.py's tolerances, with the launches it must make.
   7c. BBC per-env slice — play_bbc's build and rollout (sim.solver set through
                its `overrides` keyword) at 4096 envs, bbc_15k, trot at vx 1.0,
-               50 control steps, twice: solver pgs (the per-env Jacobi solve
+               30 control steps, twice: solver pgs (the per-env Jacobi solve
                through K1) and soft.  K1 launches = substeps (pgs) or 0 (soft),
                K2 = steps + 1, finite states, median base height over the
                terrain in [0.15, 0.45] m; env-steps/s, device ops per control
@@ -111,7 +122,7 @@ Phases (any failure exits nonzero and prints no result line):
                resolved through --log_root/--proj_name/--exptid (a temporary
                root whose agility/r5 links logs/agility/r5/model_12000.msgpack;
                the weights loaded must equal that file's) and the frozen BBC
-               logs/bbc_r5/bbc_final.msgpack for 20 control steps; K1 launches =
+               logs/bbc_r5/bbc_final.msgpack for 12 control steps; K1 launches =
                4 x (steps + 1), K2 = K3 = steps + 1, every state finite, median
                base height over the folded floor in [0.15, 0.45] m.
   9. train parity — one BBC train iteration of 64 envs (T = 8, the rough
@@ -196,7 +207,7 @@ Phases (any failure exits nonzero and prints no result line):
                iteration under torch.profiler.
  17. vision play — cli/play_tsc --use_camera at 256 envs on 64 courses
                with that checkpoint, the teacher's estimator and the frozen
-               BBC for 10 control steps: K1 launches = 4 x (steps + 1), K2 =
+               BBC for 6 control steps: K1 launches = 4 x (steps + 1), K2 =
                K3 = steps + 1, every state finite, median base height over
                the folded floor in [0.15, 0.45] m, env-steps/s; then two
                steps under torch.profiler.
@@ -224,8 +235,24 @@ Phases (any failure exits nonzero and prints no result line):
                timed, launches K1 96 / K2 24 / K3 24, priv_reg_counter 2;
                then K1 (64 envs pressed into the roof), K2 and K3 at N =
                32768 on the 256-course world.
+ 20a. layer tools — in a process of its own (its torch.profiler sessions
+               then neither slow this process's later launches nor lose
+               records, as sessions late in a process that has run many
+               did in PR 12's first run), every tool of
+               agility_tpu_torch/tools/ at its full width, T = 1 and one
+               round: bench_windows (6144 envs; the path of
+               D and E, its launches counted from zero: D once a step in its
+               rows, E once a step in its rows and once in the numerics check),
+               bench_stages (4096) and bench_stages_tsc (6144 x 64) through
+               the trainers' timer hooks, bench_vision (1024, peak memory);
+               then bench_substep (6144: K1 once a substep in the four rows
+               that solve and never in the others, device ops not falling down
+               the rows, the last row's equal to soa.substep's counted alone),
+               bench_engine and bench_env (4096); last, bench_tsc under
+               torch.profiler, its chrome trace aggregated by tools/trace_agg
+               (device kernels found).  Every row finite.
  21. env ablation — tools/bench_env_ablate and bench_env_ablate_tsc at the
-               bench's widths, T = 2 steps, one rep (last: their device-op
+               bench's widths, T = 1 step, one rep (last: their device-op
                counts run torch.profiler, which slows the host's later
                launches): every variant's rewards finite; in each full step
                K1 4 and K2 1 a step, K3 1 a step on the TSC and 0 on the BBC;
@@ -257,17 +284,17 @@ TSC_CHECKPOINT = os.path.join(ROOT, "logs", "agility", "r5", "model_12000.msgpac
 TSC_BBC = os.path.join(ROOT, "logs", "bbc_r5", "bbc_final.msgpack")
 GAIT_BANDS = os.path.join(ROOT, "agility_tpu_torch", "assets", "gait_bands_real.json")
 JAX_GAIT_REPORT = os.path.join(ROOT, "logs", "bbc_r5", "gait_report_28k.txt")
-KERNELS = ("contact_lcp", "terrain_window", "scandots")   # csrc/<name>.cu
+KERNELS = ("contact_lcp", "terrain_window", "scandots", "window_dma")   # csrc/<name>.cu
 K1_RTOL = 1e-4
 NUM_ENVS = 4096     # the BBC path's width
-STEPS = 60          # control steps of the BBC slice phase (cut from 250, then 120, for time)
+STEPS = 40          # control steps of the BBC slice phase (cut from 250, 120, then 60, for time)
 TSC_ENVS = 6144     # the TSC config's width (TscEnvCfg.num_envs), on 64 courses
-TSC_STEPS = 20      # control steps of the TSC slice phase (cut from 200, 100, then 40, for time)
+TSC_STEPS = 12      # control steps of the TSC slice phase (cut from 200, 100, 40, then 20, for time)
 TRAIN_ITERS = 1     # iterations of the BBC, TSC and vision train phases (cut from 3 for
 #                     the 32k phases' time, then from 2 for the per-env phases')
 BIG_ENVS = 32768    # the 32k tasks' width (go2_locomotion_32k, go2_32k), one iteration each
 DDP_ENVS = 64       # DDP parity: 2 gloo ranks on one card against one process
-PER_ENV_STEPS = 50   # control steps of each BBC per-env slice (pgs, soft; cut from 100 for time)
+PER_ENV_STEPS = 30   # control steps of each BBC per-env slice (pgs, soft; cut from 100, then 50)
 PGS_STEPS = 10      # control steps of the contact-frame PGS run at the BBC's width
 # the per-env engine's variants in the parity phase: (label, EngineConfig
 # overrides on the BBC env's, K1 launches per substep, K2 per control step)
@@ -280,12 +307,20 @@ PER_ENV_VARIANTS = (
     ("grid_direct", dict(soa=False, patch_size=0), 1, 0),
     ("pallas_contact", dict(pallas_contact=True), 1, 1))
 VISION_ENVS = 256   # the depth student's width (DepthCfg.camera_num_envs), on 64 courses
-VISION_STEPS = 10   # control steps of the vision play phase (cut from 50, then 20, for time)
+VISION_STEPS = 6    # control steps of the vision play phase (cut from 50, 20, then 10, for time)
 # the bench and env-ablation phases: agility_tpu_torch/bench.py's lines with one
 # warm and one timed iteration and the fast preload; the ablation tools at T
 # steps, one rep
 BENCH_ITERS = 1
-ABLATE_T = 2
+ABLATE_T = 1
+# the window DMA and layer tools phases: D and E at the window A/B's width
+# (tools/bench_windows.py's N) on its 1800 x 1800 world; every layer tool
+# (agility_tpu_torch/tools/) at its full width, LAYER_T steps (substeps,
+# rollout steps) and one round, in a process of their own; the student tool
+# at its 1024 envs
+WINDOW_ENVS = 6144
+LAYER_T = 1
+VISION_BENCH_ENVS = 1024
 # the refresh images, card vs CPU (tests/test_torch_vision.py's rule): the
 # pixels raycast.crossing_mask leaves out are counted; the rest are held at
 # DEPTH_TOL m (a grazing ray's secant step magnifies a clearance's float32
@@ -331,6 +366,41 @@ def cuda_ms(fn, reps=30, warmup=5, flush=False):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def lead_ms(fn, reps=30, warmup=5):
+    """Median milliseconds of fn() on the card with the card busy while the
+    host enqueues it, so the events time the kernel and not the host."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def host_ms(fn, batches=7, reps=40, warmup=5):
+    """Host milliseconds per call of fn(), the median over `batches` batches
+    of `reps` calls enqueued behind a sleeping card, so that the host clock
+    reads the wrapper's work alone."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / reps)
+    torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -748,6 +818,189 @@ def phase_k3(cases):
     return rows
 
 
+def _bits(t):
+    """The tensor's bits, for an exact comparison of float32 or bfloat16."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def phase_window_dma(n=WINDOW_ENVS):
+    """D and E (kernels/window_dma.py) against their plain versions at every
+    shape of the window A/B (tools/bench_windows.py: n windows on the 1800 x
+    1800 world, float32 K 5 P 32, bfloat16 K 3 P 56 and P 36; its
+    origins, in range as the JAX tool draws them): bit-exact, two calls the
+    same bits, each call counted; warm, lead, flushed and host times, the
+    plain version's, and the one indexing call that computes the same
+    function (library); bytes (D: the distinct grid cells under the windows,
+    E: the distinct band-stack rows, each read once; the origins; the
+    output), bound and share.  Returns {kernel shape: row}."""
+    from agility_tpu_torch.kernels import window_dma as wd
+    from agility_tpu_torch.tools import bench_windows as bw
+
+    x0, y0 = bw.origins(n, "cuda")
+    rows = {}
+    for dt, K, P, stride in bw.SHAPES:
+        g = bw.make_surfaces(K, bw.DTYPES[dt], "cuda")
+        H, W = g.shape[1:]
+        al = wd.sublane(g.dtype)
+        G2 = wd.band_stack(g, P, bw.BAND, stride, al)
+        geo = wd.band_geometry(H, W, K, P, bw.BAND, stride, al)
+        ar = lambda k: torch.arange(k, device="cuda")
+        rows_d, cols_d = x0.long()[:, None] + ar(P), y0.long()[:, None] + ar(P)
+        x0a, yb = wd.band_origins(x0.long(), y0.long(), geo["nb"], geo["Hp"], geo["P8"],
+                                  stride, al)
+        rows_e = x0a[:, None] + ar(geo["P8"])
+        cells = int(torch.unique((rows_d[:, :, None] * W + cols_d[:, None, :]).reshape(-1)).numel())
+        slabs = int(torch.unique((yb[:, None] * geo["Hp"] + rows_e).reshape(-1)).numel())
+        esz = g.element_size()
+        cases = (
+            ("per_env_windows", lambda: wd.per_env_windows(g, x0, y0, P),
+             lambda: wd.per_env_windows_reference(g, x0, y0, P),
+             lambda: g[:, rows_d[:, :, None], cols_d[:, None, :]], lambda t: t.transpose(0, 1),
+             cells * K * esz + nbytes(x0, y0) + n * K * P * P * esz, f"{cells} cells"),
+            ("band_windows", lambda: wd.band_windows(G2, x0, y0, P, bw.BAND, stride, al),
+             lambda: wd.band_windows_reference(G2, x0, y0, P, bw.BAND, stride, al),
+             lambda: G2[yb[:, None], rows_e], lambda t: t,
+             slabs * geo["KB"] * esz + nbytes(x0, y0) + n * geo["P8"] * geo["KB"] * esz,
+             f"{slabs} stack rows of {geo['KB']}"))
+        for name, fn, plain, library, layout, moved, reads in cases:
+            label = f"{name} {dt} K{K} P{P}"
+            before = getattr(wd, name).launches
+            got, again = fn(), fn()
+            counted = getattr(wd, name).launches - before
+            ref, lib = plain(), layout(library())
+            torch.cuda.synchronize()
+            same = torch.equal(_bits(got), _bits(ref))
+            twice = torch.equal(_bits(got), _bits(again))
+            lib_same = torch.equal(_bits(got), _bits(lib.contiguous()))
+            err = float((got.float() - ref.float()).abs().max())
+            t = timed(fn, plain, moved)
+            t.update(lead_ms=lead_ms(fn), host_ms=host_ms(fn), library_ms=cuda_ms(library))
+            print(f"{label}: N={n}, out {tuple(got.shape)} {got.dtype}; {reads} read; max abs "
+                  f"err {err:.3e}, bit-exact {same}, two calls bit-identical {twice}, the "
+                  f"indexing call equal {lib_same}, launches counted {counted} of 2; "
+                  f"{fmt_times(t)}; lead {t['lead_ms']:.4f} ms, host {t['host_ms']:.4f} ms, "
+                  f"indexing call {t['library_ms']:.4f} ms", flush=True)
+            if not (same and twice and lib_same):
+                raise SystemExit(f"{label}: the kernel differs from its plain version, from "
+                                 "itself or from the indexing call")
+            if counted != 2:
+                raise SystemExit(f"{label}: {counted} launches counted for 2 calls")
+            rows[label] = dict(max_abs_err=err, **t)
+        del g, G2
+    return rows
+
+
+def phase_layer_tools(root, T=LAYER_T):
+    """Every layer tool (agility_tpu_torch/tools/) at its full width, T
+    steps and one round after its untimed one: bench_windows (the path of D
+    and E: every launch counted, D once a step in its rows, E once a step
+    in its rows and once in the numerics check); the stage tools and the
+    student (their stages finite); then the tools that count device ops:
+    bench_substep (K1 once a substep in the four rows that solve, never in
+    the others; device ops not falling down the rows, the last row's those
+    of soa.substep counted alone), bench_engine and bench_env; last, the
+    profiled bench_tsc (torch.profiler slows the host's later launches),
+    its trace aggregated by trace_agg (device kernels found).  Returns
+    {tool: rows, and the launches of the windows and substep runs}."""
+    from agility_tpu_torch import bench
+    from agility_tpu_torch.learn.ppo_tsc import TscAlgoCfg
+    from agility_tpu_torch.tools import (bench_engine, bench_env, bench_stages,
+                                         bench_stages_tsc, bench_substep, bench_vision,
+                                         bench_windows, timing, trace_agg)
+
+    def finite(tool, rows):
+        bad = [r["label"] for r in rows if not np.isfinite(r["ms"]) or not r.get("finite", True)]
+        if bad:
+            raise SystemExit(f"layer tools {tool}: not finite: {bad}")
+        print(f"layer tools {tool}:\n" + timing.table(rows), flush=True)
+
+    out = {}
+    _counts_zero()
+    out["bench_windows"] = bench_windows.bench("cuda", n=WINDOW_ENVS, T=T, iters=1)
+    out["windows_launches"] = _counts()
+    finite("bench_windows", out["bench_windows"])
+    runs = 2 * T * len(bench_windows.SHAPES)       # warm + 1 round, T steps, each shape
+    want = _want(per_env_windows=runs, band_windows=runs + 1)
+    print(f"layer tools bench_windows: launches {out['windows_launches']} (want {want})",
+          flush=True)
+    for r in out["bench_windows"]:
+        kind = r["label"][0]
+        per = dict(per_env_windows=float(kind == "D"), band_windows=float(kind == "E"))
+        if {k: r["launches"][k] for k in per} != per:
+            raise SystemExit(f"layer tools bench_windows {r['label']}: launches {r['launches']}")
+    if out["windows_launches"] != want:
+        raise SystemExit("layer tools bench_windows: the window kernels' launches are off")
+
+    out["bench_stages"] = bench_stages.bench("cuda", NUM_ENVS, T=T, rounds=1)
+    finite("bench_stages", out["bench_stages"])
+    out["bench_stages_tsc"] = bench_stages_tsc.bench("cuda", TSC_ENVS, T=T, rounds=1)
+    finite("bench_stages_tsc", out["bench_stages_tsc"])
+    row = bench_vision.bench("cuda", VISION_BENCH_ENVS, iters=1, T=T)
+    out["bench_vision"] = [row]
+    finite("bench_vision", out["bench_vision"])
+    print(f"layer tools bench_vision: {VISION_BENCH_ENVS} envs, peak device memory "
+          f"{row['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+
+    _counts_zero()
+    rows, pieces = bench_substep.bench("cuda", TSC_ENVS, T=T, rounds=1)
+    out["substep_launches"] = _counts()
+    out["bench_substep"], out["substep_pieces"] = rows, pieces
+    finite("bench_substep", rows)
+    k1 = [r["launches"]["contact_lcp"] for r in rows]
+    ops = [r["ops"] for r in rows]
+    mc, sd0, inputs = bench_substep.setup(TSC_ENVS, "cuda")
+    substep = bench_substep.steps(mc, inputs)["soa.substep"]
+    with torch.no_grad():
+        substep(sd0)        # the first call moves the model's SoA constants to the card
+        alone = timing.device_ops(lambda: substep(sd0), "cuda", bench_substep.READS)
+    print(f"layer tools bench_substep: K1 a substep {k1}; device ops {ops}, soa.substep alone "
+          f"{alone}; pieces {json.dumps(pieces)}", flush=True)
+    if k1 != [0.0] * 3 + [1.0] * 4:
+        raise SystemExit("layer tools bench_substep: K1 launched in the wrong rows")
+    if any(b < a for a, b in zip(ops, ops[1:])) or ops[-1] != alone:
+        raise SystemExit("layer tools bench_substep: device ops fall down the rows, or the "
+                         "last row's are not soa.substep's")
+    out["bench_engine"] = bench_engine.bench("cuda", NUM_ENVS, T=T, rounds=1)
+    finite("bench_engine", out["bench_engine"])
+    out["bench_env"] = [bench_env.bench("cuda", NUM_ENVS, T=T, rounds=1)]
+    finite("bench_env", out["bench_env"])
+
+    trace = os.path.join(root, "bench_tsc_trace.json")
+    line, dt = bench.bench_tsc("cuda", TSC_ENVS, 1, algo_cfg=TscAlgoCfg(num_steps_per_env=T),
+                               profile=trace)
+    agg = trace_agg.aggregate(trace_agg.load(trace))
+    top = ", ".join(f"{name[:40]} {ms:.2f} ms x{agg['calls'][name]}"
+                    for name, ms in agg["ms"].most_common(3))
+    print(f"layer tools bench_tsc (profiled, T = {T}): {dt * 1e3:.1f} ms an iteration; trace_agg: "
+          f"{agg['total_ms']:.1f} ms of device time over {agg['count']} ops; top {top}",
+          flush=True)
+    if agg["categories"] != trace_agg.DEVICE or not agg["count"]:
+        raise SystemExit("layer tools bench_tsc: the trace holds no device kernel")
+    out["bench_tsc"] = dict(line=line, dt=dt, device_ms=agg["total_ms"], ops=agg["count"])
+    return out
+
+
+def phase_layer_tools_apart(root):
+    """phase_layer_tools in a child process, which this one waits for: the
+    child's profiler sessions (device-op counts, the profiled bench_tsc)
+    neither slow this process's later launches nor lose records, as
+    sessions late in a process that has run many profiles can (bench_substep's
+    counts fell by 60 ops after the earlier phases' profiles).  Returns the
+    child's result, through a JSON file in `root`."""
+    out = os.path.join(root, "layer_tools.json")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    script = (f"import json, sys; sys.path.insert(0, {ROOT!r}); import torch; "
+              "torch.backends.cuda.matmul.allow_tf32 = False; "
+              "torch.backends.cudnn.allow_tf32 = False; import chip_smoke as cs; "
+              f"json.dump(cs.phase_layer_tools({root!r}), open({out!r}, 'w'))")
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, timeout=900)
+    if res.returncode != 0:
+        raise SystemExit(f"layer tools: the child process failed (exit {res.returncode})")
+    with open(out) as f:
+        return json.load(f)
+
+
 def phase_bench(num_envs, tsc_envs, iters):
     """agility_tpu_torch/bench.py's two lines on the card at full width
     (bench_bbc at `num_envs` on the bench's BBC config, bench_tsc at
@@ -770,7 +1023,7 @@ def phase_bench(num_envs, tsc_envs, iters):
         launches[path] = _counts()
         rate = T * (tsc_envs if tsc else num_envs) / dt
         base = bench.BASELINES[out["metric"]]
-        want = dict(contact_lcp=4 * steps, terrain_window=steps, scandots=steps if tsc else 0)
+        want = _want(contact_lcp=4 * steps, terrain_window=steps, scandots=steps if tsc else 0)
         print(f"bench {path}: {json.dumps(out)}; {dt:.3f} s a timed iteration; launches "
               f"{launches[path]} (want {want}, {steps} control steps)", flush=True)
         keys = {"metric", "value", "unit", "vs_baseline"}
@@ -812,7 +1065,7 @@ def phase_env_ablation(num_envs, tsc_envs, T):
         if bad:
             raise SystemExit(f"env ablation {name}: non-finite rewards under {bad}")
         full = by["full step"]["launches"]
-        want = dict(contact_lcp=4, terrain_window=1, scandots=1 if name == "tsc" else 0)
+        want = _want(contact_lcp=4, terrain_window=1, scandots=1 if name == "tsc" else 0)
         if full != want:
             raise SystemExit(f"env ablation {name}: full step launches {full} a step, want {want}")
         if name == "tsc":
@@ -925,14 +1178,14 @@ def phase_per_env_parity(num_envs=64, courses=8, under_roof=8):
     acts = build_policy(cfg, device="cuda")(s.obs_buf)
     base, dec = gpu.engine_cfg, gpu.engine_cfg.decimation
     cases = [(label, gpu, cpu, s, acts, dataclasses.replace(base, **kw), False,
-              dict(contact_lcp=k1 * dec, terrain_window=k2, scandots=0))
+              _want(contact_lcp=k1 * dec, terrain_window=k2, scandots=0))
              for label, kw, k1, k2 in PER_ENV_VARIANTS]
     tg, policy = tsc_env(num_envs, courses)
     tc = type(tg)(tg.cfg, "cpu", seed=0)
     ts = press_into_roof(tg, tg.init_state(), under_roof)
     ts, nc = tg.set_commands(ts, policy.act(ts.obs_buf))
     tacts = policy.bbc_act(ts.obs_bbc_buf, nc)
-    tsc_want = dict(contact_lcp=dec, terrain_window=1, scandots=1)
+    tsc_want = _want(contact_lcp=dec, terrain_window=1, scandots=1)
     cases += [("tsc_pgs_fast", tg, tc, ts, tacts,
                dataclasses.replace(tg.engine_cfg, solver="pgs"), False, tsc_want),
               ("tsc_pgs_contact_frames_soa", tg, tc, ts, tacts,
@@ -984,17 +1237,20 @@ def _active_ceiling_contacts(env, s):
 
 
 def _counts_zero():
-    from agility_tpu_torch.kernels import contact_lcp as k1
-    from agility_tpu_torch.kernels import scandots as k3
-    from agility_tpu_torch.kernels import terrain_window as k2
+    from agility_tpu_torch.kernels import zero_launch_counts
 
-    k1.contact_lcp.launches = k2.terrain_window.launches = k3.scandots.launches = 0
+    zero_launch_counts()
 
 
 def _counts():
     from agility_tpu_torch.kernels import launch_counts
 
     return launch_counts()
+
+
+def _want(**launches):
+    """The launches a path must make: these, and none of the other kernels."""
+    return dict(dict.fromkeys(_counts(), 0), **launches)
 
 
 def phase_slice(num_envs, steps):
@@ -1097,7 +1353,7 @@ def phase_per_env_slice(num_envs, steps, solver, soa_reading):
     env, s = res["env"], res["state"]
     finite = all(bool(torch.isfinite(t).all()) for t in (*s.sim, s.obs_buf))
     med_h = _height_over_terrain(env, s)
-    want = dict(contact_lcp=res["substeps"] if solver != "soft" else 0,
+    want = _want(contact_lcp=res["substeps"] if solver != "soft" else 0,
                 terrain_window=steps + 1, scandots=0)
     prof = play_profile(label, res, num_envs)
     print(f"{label}: {num_envs} envs x {steps} control steps, solver "
@@ -1230,7 +1486,7 @@ def phase_tsc_slice(num_envs, steps, root):
     pos = s.sim.base_pos
     floor = hf.sample_height(env.grid, pos[:, 0], pos[:, 1], env._weights(s))
     med_h = float((pos[:, 2] - floor).median())
-    want = dict(contact_lcp=env.engine_cfg.decimation * res["steps"],
+    want = _want(contact_lcp=env.engine_cfg.decimation * res["steps"],
                 terrain_window=res["steps"], scandots=res["steps"])
     print(f"TSC slice: {num_envs} envs x 64 courses x {steps} control steps, launches "
           f"{launches} (want {want}), all states finite {finite}, median base height over "
@@ -1431,7 +1687,7 @@ def phase_tsc_train_parity(num_envs=64, courses=8, steps=8):
         raise SystemExit("TSC train parity: a train stage on the card disagrees with the CPU's")
 
 
-def timed_training(label, cli, argv, num_envs, probe_steps=4):
+def timed_training(label, cli, argv, num_envs, probe_steps=2):
     """Build a runner through `cli`'s build (timed), time the env step alone
     (`probe_steps` steps; 0 skips it), train through `cli`'s train with a
     CUDA event at every stage mark and the host clock, synchronised, at
@@ -1446,6 +1702,7 @@ def timed_training(label, cli, argv, num_envs, probe_steps=4):
     rate, build_s, collectives (calls) and collective_ms."""
     from agility_tpu_torch.dist import mesh
     from agility_tpu_torch.learn.ssinfogail import metrics_to_host
+    from agility_tpu_torch.tools.timing import StageTimer
 
     args = cli.get_args(argv)
     torch.cuda.reset_peak_memory_stats()
@@ -1453,20 +1710,17 @@ def timed_training(label, cli, argv, num_envs, probe_steps=4):
     runner = cli.build(args)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    marks, host, metrics = [], {"start": [], "end": []}, []
+    metrics = []
 
-    def mark(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((stage, ev))
-        if stage in host:
-            torch.cuda.synchronize()
-            host[stage].append(time.perf_counter())
+    def on_mark(stage):
         if stage == "end":
             metrics.append(metrics_to_host(runner.last_metrics))
 
+    # a CUDA event at every stage mark, the host clock (synchronised) at
+    # each iteration's start and end (tools/bench_stages' stage reader)
+    timer = StageTimer("cuda", on_mark=on_mark)
     step_before = env_step_ms(runner, probe_steps) if probe_steps else float("nan")
-    runner.alg.timer = mark
+    runner.alg.timer = timer
     _counts_zero()
     mesh.all_reduce_.calls, mesh.all_reduce_.events = 0, []
     t0 = time.perf_counter()
@@ -1486,14 +1740,7 @@ def timed_training(label, cli, argv, num_envs, probe_steps=4):
     # per iteration: each stage's time from the events (from the mark
     # before it, summed over a stage's marks; "end" is the runner's work
     # after the updates), and the iteration's time on the host clock
-    its, prev = [], None
-    for stage, ev in marks:
-        if stage == "start":
-            its.append({})
-        else:
-            its[-1][stage] = its[-1].get(stage, 0.0) + prev.elapsed_time(ev)
-        prev = ev
-    wall_ms = [(b - a) * 1e3 for a, b in zip(host["start"], host["end"])]
+    its, wall_ms, host = timer.iterations(), timer.wall_ms(), timer.host
     T = runner.cfg.num_steps_per_env
     # all the work from iteration 1's start to the last one's end
     first = 1 if len(wall_ms) >= 2 else 0
@@ -1555,7 +1802,7 @@ def phase_train(num_envs, iters):
                    for a, b in zip(mine.state_dict().values(), back.state_dict().values()))
         print(f"BBC train: slim checkpoint {os.path.basename(path)} read back by play_bbc's "
               f"loader, tensors equal {same}", flush=True)
-        want = dict(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
+        want = _want(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
                     terrain_window=T * iters, scandots=0)
         if launches != want:
             raise SystemExit(f"BBC train: launches {launches}, want {want}")
@@ -1645,7 +1892,7 @@ def phase_bbc_mocap(num_envs, root):
           f"the files' {counts}; expert labels per mode {modes}; metrics {json.dumps(metrics)}; "
           f"checkpoint {os.path.basename(path)} read back equal {back}; on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    want = dict(contact_lcp=runner.env.engine_cfg.decimation * T, terrain_window=T, scandots=0)
+    want = _want(contact_lcp=runner.env.engine_cfg.decimation * T, terrain_window=T, scandots=0)
     if launches != want:
         raise SystemExit(f"BBC mocap: launches {launches}, want {want}")
     if not (finite and counts and min(modes) > 0 and back):
@@ -1738,7 +1985,7 @@ def phase_tsc_train(num_envs, iters):
             ("actor_critic", ts.ac), ("estimator", ts.est)) for k, v in mod.state_dict().items())
         print(f"TSC train: slim checkpoint {os.path.basename(path)} read back by "
               f"params_from_jax_tsc, tensors equal {same}", flush=True)
-        want = dict(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
+        want = _want(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
                     terrain_window=T * iters, scandots=T * iters)
         if launches != want:
             raise SystemExit(f"TSC train: launches {launches}, want {want}")
@@ -2000,7 +2247,7 @@ def phase_train_32k(iters=1):
         print(f"{label}: slim checkpoint {os.path.basename(path)} read back equal {same}",
               flush=True)
         _state_reads_back(runner, label)
-        want = dict(contact_lcp=env.engine_cfg.decimation * T * iters,
+        want = _want(contact_lcp=env.engine_cfg.decimation * T * iters,
                     terrain_window=T * iters, scandots=0)
         if launches != want:
             raise SystemExit(f"{label}: launches {launches}, want {want}")
@@ -2067,7 +2314,7 @@ def phase_tsc_train_32k(iters=1):
         print(f"{label}: slim checkpoint {os.path.basename(path)} read back equal {same}",
               flush=True)
         _state_reads_back(runner, label)
-        want = dict(contact_lcp=env.engine_cfg.decimation * T * iters,
+        want = _want(contact_lcp=env.engine_cfg.decimation * T * iters,
                     terrain_window=T * iters, scandots=T * iters)
         if launches != want:
             raise SystemExit(f"{label}: launches {launches}, want {want}")
@@ -2255,7 +2502,7 @@ def phase_vision_train(root, iters):
     print(f"{label}: {VISION_ENVS} envs x 64 courses, it {ts.it}; metrics {json.dumps(m)}; "
           f"checkpoint {os.path.basename(path)} read back by params_from_jax_vision, tensors "
           f"equal {same}; peak {peak / 2**30:.3f} GiB", flush=True)
-    want = dict(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
+    want = _want(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
                 terrain_window=T * iters, scandots=T * iters)
     if launches != want:
         raise SystemExit(f"{label}: launches {launches}, want {want}")
@@ -2290,7 +2537,7 @@ def phase_vision_play(num_envs, steps, student):
     pos = s.sim.base_pos
     floor = hf.sample_height(env.grid, pos[:, 0], pos[:, 1], env._weights(s))
     med_h = float((pos[:, 2] - floor).median())
-    want = dict(contact_lcp=env.engine_cfg.decimation * res["steps"],
+    want = _want(contact_lcp=env.engine_cfg.decimation * res["steps"],
                 terrain_window=res["steps"], scandots=res["steps"])
     print(f"TSC vision play: {num_envs} envs x 64 courses x {steps} control steps (camera every "
           f"{res['policy'].interval}), launches {launches} (want {want}), all states finite "
@@ -2372,6 +2619,7 @@ def main():
     from agility_tpu_torch.kernels import contact_lcp as k1
     from agility_tpu_torch.kernels import scandots as k3
     from agility_tpu_torch.kernels import terrain_window as k2
+    from agility_tpu_torch.kernels import window_dma as wd
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
@@ -2400,6 +2648,7 @@ def main():
                 ("K2", lambda: phase_k2(k2_cases(bbc))),
                 ("K3", lambda: phase_k3([("tsc", k3_case(TSC_ENVS)),
                                          ("tsc_vision", k3_case(VISION_ENVS))])),
+                ("window DMA", phase_window_dma),
                 ("bench", lambda: phase_bench(NUM_ENVS, TSC_ENVS, BENCH_ITERS)),
                 ("parity", phase_parity), ("TSC parity", phase_tsc_parity),
                 ("BBC slice", lambda: phase_slice(NUM_ENVS, STEPS)),
@@ -2423,6 +2672,7 @@ def main():
                 ("vision play", lambda: phase_vision_play(VISION_ENVS, VISION_STEPS,
                                                           rows["vision train"][1])),
                 ("BBC train 32k", phase_train_32k), ("TSC train 32k", phase_tsc_train_32k),
+                ("layer tools", lambda: phase_layer_tools_apart(tmp_root)),
                 # last: its device-op counts (torch.profiler) slow the host's later launches
                 ("env ablation", lambda: phase_env_ablation(NUM_ENVS, TSC_ENVS, ABLATE_T))):
             t_phase = time.perf_counter()
@@ -2446,22 +2696,31 @@ def main():
                  tsc_train=rows["TSC train"],
                  tsc_vision_train=rows["vision train"][0], tsc_vision_play=rows["vision play"],
                  bbc_train_32k=rows["BBC train 32k"][0], tsc_train_32k=rows["TSC train 32k"][0],
-                 **rows["bench"])
-    keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share")
+                 bench_windows=rows["layer tools"]["windows_launches"],
+                 bench_substep=rows["layer tools"]["substep_launches"], **rows["bench"])
+    keys = ("ms", "flushed_ms", "plain_ms", "bound_ms", "bound_by", "share", "library_ms")
+    window = lambda name: {shape: r for shape, r in rows["window DMA"].items()
+                           if shape.startswith(name)}
     kernels = []
     # each kernel's headline numbers are those of its first shape: K1 at the
-    # BBC's (warm, 5 sweeps), K2 and K3 at the TSC's
-    for mod, name, r, head in ((k1, "contact_lcp", rows["K1"], "bbc warm"),
-                               (k2, "terrain_window", rows["K2"], "tsc"),
-                               (k3, "scandots", rows["K3"], "tsc")):
+    # BBC's (warm, 5 sweeps), K2 and K3 at the TSC's, D and E at float32 K 5 P 32;
+    # no single PyTorch call computes K1, K2 or K3 (library_ms null)
+    for name, source, replaces, r, head in (
+            ("contact_lcp", k1.SOURCE, k1.TPU_KERNEL, rows["K1"], "bbc warm"),
+            ("terrain_window", k2.SOURCE, k2.TPU_KERNEL, rows["K2"], "tsc"),
+            ("scandots", k3.SOURCE, k3.TPU_KERNEL, rows["K3"], "tsc"),
+            ("per_env_windows", wd.SOURCE, wd.TPU_KERNEL_D, window("per_env_windows"),
+             "per_env_windows f32 K5 P32"),
+            ("band_windows", wd.SOURCE, wd.TPU_KERNEL_E, window("band_windows"),
+             "band_windows f32 K5 P32")):
         by_path = {p: n[name] for p, n in paths.items()}
         kernels.append(dict(
-            name=name, route="cuda", source=mod.SOURCE, replaces=mod.TPU_KERNEL,
+            name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(v["max_abs_err"] for v in r.values()),
-            **{k: r[head][k] for k in keys}, library_ms=None,
-            by_shape={shape: {k: v[k] for k in keys + ("sectors", "routes") if k in v}
-                      for shape, v in r.items()}))
+            **{k: r[head].get(k) for k in keys},
+            by_shape={shape: {k: v[k] for k in keys + ("sectors", "routes", "lead_ms", "host_ms")
+                              if k in v} for shape, v in r.items()}))
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()}),
           flush=True)
     print(f"chip_smoke: every phase passed; total wall time {time.perf_counter() - t_script:.1f} s",

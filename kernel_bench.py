@@ -45,7 +45,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 import types
 
 import numpy as np
@@ -96,41 +95,6 @@ def direct_k2():
     return mod
 
 
-def lead_ms(fn, reps=30, warmup=5):
-    """Median milliseconds of fn() on the card with the card busy while the
-    host enqueues it, so the events time the kernel and not the host."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def host_ms(fn, batches=7, reps=40, warmup=5):
-    """Host milliseconds per call of fn(), the median over `batches` batches
-    of `reps` calls enqueued behind a sleeping card, so that the host clock
-    reads the wrapper's work alone."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(batches):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(100_000_000)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        times.append(1e3 * (time.perf_counter() - t0) / reps)
-    torch.cuda.synchronize()
-    return float(np.median(times))
-
-
 def read_trace(fn, read, grid, slots):
     """One flushed call of a traced kernel, then its per-block stamps
     (grid blocks, at most TRACE_BLOCKS) as an int64 array."""
@@ -159,9 +123,9 @@ def time_turns(row, versions, order, fn_of):
         fn = fn_of(versions[name])
         r = row[name]
         r["warm_ms"].append(cs.cuda_ms(fn))
-        r["lead_ms"].append(lead_ms(fn))
+        r["lead_ms"].append(cs.lead_ms(fn))
         r["flushed_ms"].append(cs.cuda_ms(fn, flush=True))
-        r["host_ms"].append(host_ms(fn))
+        r["host_ms"].append(cs.host_ms(fn))
     for name in versions:
         row[name]["share"] = row["bound_ms"] / float(np.mean(row[name]["flushed_ms"]))
     if "parent" in versions:

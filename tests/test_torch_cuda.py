@@ -372,5 +372,69 @@ def test_ablation_variant_on_card(card):
     assert label == "no _measure_heights"
     begin = bench_env_ablate.start(env)
     row = bench_env_ablate.bench(env, label, begin, 2, 1, **patches)
-    assert row["finite"] and row["launches"] == dict(contact_lcp=4, terrain_window=1, scandots=0)
+    assert row["finite"] and row["launches"] == dict(contact_lcp=4, terrain_window=1, scandots=0,
+                                                    per_env_windows=0, band_windows=0)
     assert bench_env_ablate.device_ops(env, begin, **patches) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 1000])
+@pytest.mark.parametrize("shape", [("f32", 5, 32, 32), ("bf16", 3, 56, 8), ("bf16", 3, 36, 16),
+                                   ("f32", 2, 5, 4), ("bf16", 1, 3, 2)])
+def test_window_dma_kernels_match_reference(card, n, shape):
+    """D and E against their plain versions, bit for bit, on a 1 x 2 ... K
+    surface world of 200 x 203 (an odd width: most of D's rows unaligned):
+    D with origins anywhere up to 10 cells off the grid and with Pc != P,
+    E at its clipped origins (including off the stack); each wrapper counts
+    one launch a call, and two calls give the same bits."""
+    from agility_tpu_torch.kernels import window_dma as wd
+
+    dt, K, P, stride = shape
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    gen = torch.Generator().manual_seed(n * 100 + P)
+    g = torch.randn((K, 200, 203), generator=gen).to("cuda", dtype)
+    x0 = torch.randint(-10, 200, (n,), generator=gen, dtype=torch.int32).cuda()
+    y0 = torch.randint(-10, 203, (n,), generator=gen, dtype=torch.int32).cuda()
+    for Pc in (P, P + 3):
+        before = wd.per_env_windows.launches
+        out = wd.per_env_windows(g, x0, y0, P, Pc)
+        again = wd.per_env_windows(g, x0, y0, P, Pc)
+        torch.cuda.synchronize()
+        assert wd.per_env_windows.launches == before + 2
+        ref = wd.per_env_windows_reference(g, x0, y0, P, Pc)
+        bits = torch.int16 if dt == "bf16" else torch.int32
+        assert torch.equal(out.view(bits), ref.view(bits))
+        assert torch.equal(out.view(bits), again.view(bits))
+    band = 64 if P > 8 else 8
+    al = wd.sublane(dtype)
+    G2 = wd.band_stack(g, P, band, stride, al)
+    before = wd.band_windows.launches
+    out = wd.band_windows(G2, x0, y0, P, band, stride, al)
+    again = wd.band_windows(G2, x0, y0, P, band, stride, al)
+    torch.cuda.synchronize()
+    assert wd.band_windows.launches == before + 2
+    bits = torch.int16 if dt == "bf16" else torch.int32
+    ref = wd.band_windows_reference(G2, x0, y0, P, band, stride, al)
+    assert torch.equal(out.view(bits), ref.view(bits))
+    assert torch.equal(out.view(bits), again.view(bits))
+
+
+@pytest.mark.cuda
+def test_window_dma_unaligned_and_in_range(card):
+    """D's vector rows (float32 origins at multiples of 4 and Pc = 32) and
+    scalar rows side by side, and E's element route on a stack whose base
+    is not 16-byte aligned: equal to the plain versions."""
+    from agility_tpu_torch.kernels import window_dma as wd
+
+    g = torch.randn((5, 300, 400), device="cuda")
+    x0 = torch.arange(64, dtype=torch.int32, device="cuda") * 3
+    y0 = torch.arange(64, dtype=torch.int32, device="cuda") * 5
+    assert torch.equal(wd.per_env_windows(g, x0, y0, 32), wd.per_env_windows_reference(
+        g, x0, y0, 32))
+    G2 = wd.band_stack(g, 32, 64, 32, 8)
+    flat = torch.empty(G2.numel() + 1, device="cuda")
+    G2u = flat[1:].view(G2.shape)
+    G2u.copy_(G2)
+    assert G2u.data_ptr() % 16 == 4
+    out = wd.band_windows(G2u, x0, y0, 32, 64, 32, 8)
+    assert torch.equal(out, wd.band_windows_reference(G2, x0, y0, 32, 64, 32, 8))

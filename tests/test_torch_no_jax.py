@@ -1,8 +1,10 @@
 """The port runs where jax, flax and optax are not installed, and without
 the JAX package: a fresh interpreter with jax, flax, optax and agility_tpu
 blocked imports every module of agility_tpu_torch, chip_smoke.py, multi_card.py,
-kernel_bench.py and profile_slice.py, then takes two env steps of 2 envs on
-the CPU and one on the per-env engine (sim.solver="pgs"); a second one plays two hierarchical TSC steps of 2 envs on a
+kernel_bench.py and profile_slice.py (the layer tools of
+agility_tpu_torch/tools/ among them), then takes two env steps of 2 envs on
+the CPU and one on the per-env engine (sim.solver="pgs") and runs the
+window A/B (tools/bench_windows) on a small world; a second one plays two hierarchical TSC steps of 2 envs on a
 2-course world; a third trains the BBC for two iterations of 8 envs through
 cli/train_bbc; a fourth trains the TSC teacher for two iterations of 4 envs
 on 2 courses through cli/train_tsc (full TscAlgoCfg), then resumes from
@@ -54,6 +56,10 @@ SCRIPT = textwrap.dedent("""
     s = env.init_state()
     s, out = env.step(s, policy(s.obs_buf))
     assert bool(torch.isfinite(s.sim.u).all())
+    # the window A/B (the window copies D and E on the CPU) on a small world
+    from agility_tpu_torch.tools import bench_windows
+    rows = bench_windows.bench("cpu", n=4, T=1, iters=1, H=100, W=100)
+    assert len(rows) == 15 and all(r["ms"] > 0 for r in rows)
     assert not any(k in ("jax", "agility_tpu") or k.startswith(("jax.", "flax", "optax",
                                                                   "agility_tpu."))
                    for k, v in sys.modules.items() if v is not None)
