@@ -25,6 +25,10 @@
 // block's next envs, kRing of them, indexed by the env's place in the
 // block's walk.  One warp fills 32 at a time, ahead of their use, so that no
 // copy and no load waits on a centre's load and its two divides.
+//
+// D's "tma" route (window_dma.cu) uses the barriers, the 3-d TMA load and
+// the tensor-map cache (tiled_map, any rank up to 3 and element type) with
+// a ring of its own.
 #pragma once
 
 #include <cuda.h>
@@ -105,6 +109,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// The box of the 3-d `map` whose first element is (k, row, col), into `dst`
+// (128-byte aligned), completing on `bar`.  Elements outside the tensor,
+// negative coordinates included, arrive as zeros and count towards the
+// box's bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int k, int row,
+                                            int col, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(k), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // One 4-byte asynchronous copy.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
@@ -154,9 +171,10 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Each stage's barrier expects `count` arrivals a phase.
-__device__ __forceinline__ void init_barriers(unsigned long long* bar, int count) {
-  for (int s = 0; s < kStages; ++s) mbar_init(&bar[s], count);
+// Each of `stages` barriers expects `count` arrivals a phase.
+__device__ __forceinline__ void init_barriers(unsigned long long* bar, int count,
+                                              int stages = kStages) {
+  for (int s = 0; s < stages; ++s) mbar_init(&bar[s], count);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
@@ -250,52 +268,77 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// The tensor map of an (H, W) float32 surface at `ptr` (16-byte aligned,
-// W % 4 == 0) in boxes of P rows by bw columns.  Returns a cudaError.
-inline int encode_surface(CUtensorMap* map, const void* ptr, int H, int W, int P, int bw) {
+// The tiled tensor map of the row-major tensor at `ptr` (16-byte aligned)
+// with `rank` dims, dims[0] innermost (dims[0] * esz a multiple of 16), of
+// `dtype` elements of esz bytes, in boxes box[0] x ... x box[rank - 1].
+// Returns a cudaError.
+inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType dtype, int esz, const void* ptr,
+                        int rank, const int* dims, const int* box) {
   const EncodeTiled fn = encode_fn();
-  if (!fn) return (int)cudaErrorInvalidValue;
-  const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)H};
-  const cuuint64_t strides[1] = {(cuuint64_t)W * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)bw, (cuuint32_t)P};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
-                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (!fn || rank < 1 || rank > 3) return (int)cudaErrorInvalidValue;
+  cuuint64_t gdims[3], strides[2];
+  cuuint32_t boxd[3], estr[3];
+  cuuint64_t pitch = (cuuint64_t)esz;
+  for (int i = 0; i < rank; ++i) {
+    gdims[i] = (cuuint64_t)dims[i];
+    boxd[i] = (cuuint32_t)box[i];
+    estr[i] = 1;
+    pitch *= (cuuint64_t)dims[i];
+    if (i + 1 < rank) strides[i] = pitch;
+  }
+  const CUresult r = fn(map, dtype, rank, const_cast<void*>(ptr), gdims, strides, boxd, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// encode_surface, remembered by the calling host thread for its last
-// kMapCache (ptr, H, W, P, bw), which are all the map depends on: a run's
-// grids stay put, so its launches encode nothing.
+// encode_tiled, remembered by the calling host thread for its last
+// kMapCache (ptr, dtype, dims, box), which are all the map depends on: a
+// run's tensors stay put, so its launches encode nothing.
 constexpr int kMapCache = 8;
 
-inline int surface_map(CUtensorMap* map, const void* ptr, int H, int W, int P, int bw) {
+inline int tiled_map(CUtensorMap* map, CUtensorMapDataType dtype, int esz, const void* ptr,
+                     int rank, const int* dims, const int* box) {
   struct Entry {
     CUtensorMap map;
     const void* ptr;
-    int H, W, P, bw;
+    CUtensorMapDataType dtype;
+    int rank, dims[3], box[3];
   };
   static thread_local Entry cache[kMapCache] = {};
   static thread_local int next = 0;
+  auto same = [&](const Entry& e) {
+    if (e.ptr != ptr || e.dtype != dtype || e.rank != rank) return false;
+    for (int i = 0; i < rank; ++i)
+      if (e.dims[i] != dims[i] || e.box[i] != box[i]) return false;
+    return true;
+  };
   for (const Entry& e : cache)
-    if (e.ptr == ptr && e.H == H && e.W == W && e.P == P && e.bw == bw) {
+    if (same(e)) {
       *map = e.map;
       return 0;
     }
   Entry& e = cache[next];
   e.ptr = nullptr;
-  const int err = encode_surface(&e.map, ptr, H, W, P, bw);
+  const int err = encode_tiled(&e.map, dtype, esz, ptr, rank, dims, box);
   if (err != 0) return err;
   e.ptr = ptr;
-  e.H = H;
-  e.W = W;
-  e.P = P;
-  e.bw = bw;
+  e.dtype = dtype;
+  e.rank = rank;
+  for (int i = 0; i < rank; ++i) {
+    e.dims[i] = dims[i];
+    e.box[i] = box[i];
+  }
   next = (next + 1) % kMapCache;
   *map = e.map;
   return 0;
+}
+
+// The map of an (H, W) float32 surface at `ptr` (16-byte aligned, W % 4 ==
+// 0) in boxes of P rows by bw columns.
+inline int surface_map(CUtensorMap* map, const void* ptr, int H, int W, int P, int bw) {
+  const int dims[2] = {W, H}, box[2] = {bw, P};
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, 2, dims, box);
 }
 
 }  // namespace window_ring

@@ -823,6 +823,57 @@ def _bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
+def d_moved(g, x0, y0, P):
+    """(bytes, cells) of D's windows of P x P at (x0, y0) (in range) on the
+    surfaces g (K, H, W): the distinct grid cells under the windows, each
+    read once from every surface, the origins, and the output."""
+    K, H, W = g.shape
+    ar = torch.arange(P, device=g.device)
+    rows, cols = x0.long()[:, None] + ar, y0.long()[:, None] + ar
+    cells = int(torch.unique((rows[:, :, None] * W + cols[:, None, :]).reshape(-1)).numel())
+    esz = g.element_size()
+    return cells * K * esz + nbytes(x0, y0) + x0.shape[0] * K * P * P * esz, cells
+
+
+def off_grid_origins(n, H, W, P, seed=13):
+    """n window origins from default_rng(seed), up to P cells beyond every
+    edge of an H x W grid (negative ones included), as int32 on the card;
+    and how many windows lie wholly and partly outside the grid."""
+    rng = np.random.default_rng(seed)
+    x0 = torch.as_tensor(rng.integers(-P, H + P + 1, n), dtype=torch.int32, device="cuda")
+    y0 = torch.as_tensor(rng.integers(-P, W + P + 1, n), dtype=torch.int32, device="cuda")
+    wholly = (x0 <= -P) | (x0 >= H) | (y0 <= -P) | (y0 >= W)
+    partly = ~wholly & ((x0 < 0) | (x0 > H - P) | (y0 < 0) | (y0 > W - P))
+    return x0, y0, int(wholly.sum()), int(partly.sum())
+
+
+def d_route_check(label, g, P, n, counted):
+    """D's route at its window A/B shape: "tma" on the 1800 x 1800 world
+    (`counted`, the route launches of its two calls, on that route alone),
+    and one call at off_grid_origins held bit-exact to the plain version.
+    Returns the row's launch parameters and the off-grid reading."""
+    from agility_tpu_torch.kernels import window_dma as wd
+
+    K, H, W = g.shape
+    cfg = wd.device_per_env_config(n, K, H, W, P, P, g.dtype, g.device, g.data_ptr())
+    x0, y0, wholly, partly = off_grid_origins(n, H, W, P)
+    got = wd.per_env_windows(g, x0, y0, P)
+    ref = wd.per_env_windows_reference(g, x0, y0, P)
+    torch.cuda.synchronize()
+    same = torch.equal(_bits(got), _bits(ref))
+    launch = {k: cfg[k] for k in ("route", "bw", "stages", "grid", "smem", "threads")}
+    print(f"{label}: launch {launch}, route launches of the two calls {counted}; off the grid "
+          f"(origins up to {P} cells beyond every edge): {wholly} windows wholly and {partly} "
+          f"partly outside, bit-exact {same}", flush=True)
+    if cfg["route"] != "tma" or counted != dict(rows=0, tma=2):
+        raise SystemExit(f"{label}: D did not take its \"tma\" route on the full world")
+    if not (same and wholly and partly):
+        raise SystemExit(f"{label}: off the grid, D differs from its plain version or the "
+                         "origins miss the edges")
+    return dict(launch=launch, off_grid=dict(bit_exact=same, wholly_outside=wholly,
+                                             partly_outside=partly))
+
+
 def phase_window_dma(n=WINDOW_ENVS):
     """D and E (kernels/window_dma.py) against their plain versions at every
     shape of the window A/B (tools/bench_windows.py: n windows on the 1800 x
@@ -832,7 +883,8 @@ def phase_window_dma(n=WINDOW_ENVS):
     plain version's, and the one indexing call that computes the same
     function (library); bytes (D: the distinct grid cells under the windows,
     E: the distinct band-stack rows, each read once; the origins; the
-    output), bound and share.  Returns {kernel shape: row}."""
+    output), bound and share.  D also takes its "tma" route there and is
+    bit-exact off the grid (d_route_check).  Returns {kernel shape: row}."""
     from agility_tpu_torch.kernels import window_dma as wd
     from agility_tpu_torch.tools import bench_windows as bw
 
@@ -849,14 +901,14 @@ def phase_window_dma(n=WINDOW_ENVS):
         x0a, yb = wd.band_origins(x0.long(), y0.long(), geo["nb"], geo["Hp"], geo["P8"],
                                   stride, al)
         rows_e = x0a[:, None] + ar(geo["P8"])
-        cells = int(torch.unique((rows_d[:, :, None] * W + cols_d[:, None, :]).reshape(-1)).numel())
+        moved_d, cells = d_moved(g, x0, y0, P)
         slabs = int(torch.unique((yb[:, None] * geo["Hp"] + rows_e).reshape(-1)).numel())
         esz = g.element_size()
         cases = (
             ("per_env_windows", lambda: wd.per_env_windows(g, x0, y0, P),
              lambda: wd.per_env_windows_reference(g, x0, y0, P),
              lambda: g[:, rows_d[:, :, None], cols_d[:, None, :]], lambda t: t.transpose(0, 1),
-             cells * K * esz + nbytes(x0, y0) + n * K * P * P * esz, f"{cells} cells"),
+             moved_d, f"{cells} cells"),
             ("band_windows", lambda: wd.band_windows(G2, x0, y0, P, bw.BAND, stride, al),
              lambda: wd.band_windows_reference(G2, x0, y0, P, bw.BAND, stride, al),
              lambda: G2[yb[:, None], rows_e], lambda t: t,
@@ -865,8 +917,10 @@ def phase_window_dma(n=WINDOW_ENVS):
         for name, fn, plain, library, layout, moved, reads in cases:
             label = f"{name} {dt} K{K} P{P}"
             before = getattr(wd, name).launches
+            routes = dict(wd.per_env_windows.route_launches)
             got, again = fn(), fn()
             counted = getattr(wd, name).launches - before
+            by_route = {r: c - routes[r] for r, c in wd.per_env_windows.route_launches.items()}
             ref, lib = plain(), layout(library())
             torch.cuda.synchronize()
             same = torch.equal(_bits(got), _bits(ref))
@@ -886,6 +940,8 @@ def phase_window_dma(n=WINDOW_ENVS):
             if counted != 2:
                 raise SystemExit(f"{label}: {counted} launches counted for 2 calls")
             rows[label] = dict(max_abs_err=err, **t)
+            if name == "per_env_windows":
+                rows[label].update(d_route_check(label, g, P, n, by_route))
         del g, G2
     return rows
 
@@ -1459,9 +1515,13 @@ def link_teacher(root):
 
 
 def phase_tsc_slice(num_envs, steps, root):
+    """play_tsc at the TSC's width through its teacher resolved by name,
+    then K1 on the per-env route at the TSC's shape on the played states
+    (k1_per_env_inputs, as phase_k1_per_env).  Returns (launches, {K1 row})."""
     from agility_tpu_torch.cli import play_tsc
     from agility_tpu_torch.io import checkpoint as ckpt
     from agility_tpu_torch.physics import heightfield as hf
+    from agility_tpu_torch.physics import soa
 
     link = link_teacher(root)
     args = play_tsc.get_args(["--device", "cuda", "--num_envs", str(num_envs), "--courses",
@@ -1501,7 +1561,13 @@ def phase_tsc_slice(num_envs, steps, root):
     if not 0.15 <= med_h <= 0.45:
         raise SystemExit("TSC slice: median base height over the floor outside [0.15, 0.45] m")
     tsc_busy_share(res, num_envs)
-    return launches
+    # K1 on the per-env route at the TSC's shape (sim.solver "pgs" on the
+    # TSC task reaches it): the played states, 10 cold sweeps
+    label = "tsc per-env cold"
+    params = env.base_params._replace(hf_weights=env._weights(s))
+    k1 = k1_check(label, k1_per_env_inputs(env, s.sim, params, 10), 10,
+                  soa.consts_of(env.mc).S, False)
+    return launches, {label: k1}
 
 
 def tsc_busy_share(res, num_envs, steps=2):
@@ -2688,10 +2754,12 @@ def main():
         for k, r in zip(("K1", "K2", "K3"), rows[phase][1:]):
             rows[k].update(r)
     rows["K1"].update(rows["K1 per-env"])
+    rows["K1"].update(rows["TSC slice"][1])
     paths = dict(bbc_play=rows["BBC slice"][0],
                  bbc_play_per_env=rows["BBC per-env slice pgs"][0],
                  bbc_play_per_env_soft=rows["BBC per-env slice soft"][0],
-                 bbc_pgs_contact_frames=rows["PGS contact frames"][0], tsc_play=rows["TSC slice"],
+                 bbc_pgs_contact_frames=rows["PGS contact frames"][0],
+                 tsc_play=rows["TSC slice"][0],
                  bbc_train=rows["BBC train"], bbc_mocap_train=rows["BBC mocap"],
                  tsc_train=rows["TSC train"],
                  tsc_vision_train=rows["vision train"][0], tsc_vision_play=rows["vision play"],
@@ -2719,7 +2787,8 @@ def main():
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(v["max_abs_err"] for v in r.values()),
             **{k: r[head].get(k) for k in keys},
-            by_shape={shape: {k: v[k] for k in keys + ("sectors", "routes", "lead_ms", "host_ms")
+            by_shape={shape: {k: v[k] for k in keys + ("sectors", "routes", "lead_ms", "host_ms",
+                                                       "launch", "off_grid")
                               if k in v} for shape, v in r.items()}))
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()}),
           flush=True)

@@ -1,10 +1,12 @@
-"""The hand-written kernels K1 (contact LCP), K2 (terrain window) and K3
-(scandots), timed on one card against the same kernels of another checkout
-(the parent commit's), on the same inputs, in turns.
+"""The hand-written kernels K1 (contact LCP), K2 (terrain window), K3
+(scandots) and D (the per-env window copy), timed on one card against the
+same kernels of another checkout (the parent commit's), on the same inputs,
+in turns.
 
     mkdir -p build/parent && git archive <parent> agility_tpu_torch | tar -x -C build/parent
     python3 kernel_bench.py --parent build/parent --trace    # needs one CUDA card
     python3 kernel_bench.py --kernels k2,k3                   # this checkout alone
+    python3 kernel_bench.py --parent build/parent --kernels d
 
 Builds every kernel, each from its own checkout's csrc/ into that checkout's
 build/kernels/, makes the inputs as chip_smoke.py does (K1 at the BBC shape,
@@ -12,9 +14,12 @@ N = 4096, S = 24, and the TSC shape, N = 6144, S = 28 with ceiling rows
 active, warm-started with 5 sweeps and cold with 10; K2 at the TSC shape,
 N = 6144 windows of 32 on the 64-course world with weights and the
 ceiling, and the BBC shape, N = 4096 windows of 24 on the rough grid; K3 at
-the TSC shape, N = 6144 scans of 132 points, window 34), holds every
-version to the plain one (K1 within 1e-4 of max |lam|, K2 and K3 exactly),
-and times each four ways, in the order parent, this, this, parent:
+the TSC shape, N = 6144 scans of 132 points, window 34; D at the window
+A/B's three shapes, N = 6144 windows on the 1800 x 1800 world, float32 K 5
+P 32 and bfloat16 K 3 P 56 and P 36, as chip_smoke.py's window DMA phase
+makes them), holds every version to the plain one (K1 within 1e-4 of max
+|lam|, K2, K3 and D exactly, D bit for bit), and times each four ways, in
+the order parent, this, this, parent:
   warm_ms     chip_smoke.py's reading: CUDA events around one call, the L2
               warm across calls (includes the wrapper's host time where the
               card waits for it)
@@ -28,8 +33,13 @@ and times each four ways, in the order parent, this, this, parent:
               of 7 such batches
 K2 is also timed in its other design, in the order parent, this, other,
 other, this, parent: one block per env with plain loads (the route it takes
-where W % 4 != 0).  With --trace it also runs this checkout's K1 built with
--DK1_TRACE and K2 built with -DWINDOW_TRACE once per shape, flushed, and
+where W % 4 != 0); D likewise in its "rows" route (one block an env, row by
+row: the route it takes where its tensor map is not allowed), forced on the
+same grid.  D's rows give the bound (the distinct cells under the windows,
+read once, the origins and the output), the share of it and the parent's
+flushed time over this one's (speedup_flushed), as K1-K3's do.  With
+--trace it also runs this checkout's K1 built with -DK1_TRACE and K2 built
+with -DWINDOW_TRACE once per shape, flushed, and
 reports where the blocks' time goes: when each block's first env landed
 and when it ended (percentiles over the grid, ns from the first block's
 start), and per env the ns a block spent waiting for its copy and computing
@@ -92,6 +102,15 @@ def direct_k2():
         return mod.launch_config(N, P, W + 1, surfaces, 1, 1)
 
     mod._config = config
+    return mod
+
+
+def rows_d():
+    """This checkout's D module made to launch its "rows" route (one block an
+    env, the route it takes where its tensor map is not allowed) on any
+    grid."""
+    mod, _ = load_kernel(ROOT, "rows", "window_dma")
+    mod.device_per_env_config = lambda N, *_, **__: mod.rows_config(N)
     return mod
 
 
@@ -253,21 +272,56 @@ def bench_k3(opts, order):
     return {"tsc": row}
 
 
+def bench_d(opts, order):
+    from agility_tpu_torch.kernels import window_dma as wd
+    from agility_tpu_torch.tools import bench_windows as bw
+
+    versions = {"this": wd, "rows": rows_d()}
+    if opts.parent:
+        versions["parent"], _ = load_kernel(opts.parent, "parent", "window_dma")
+    turns = with_variant(order, "rows")
+    n = cs.WINDOW_ENVS
+    x0, y0 = bw.origins(n, "cuda")
+    rows = {}
+    for dt, K, P, _ in bw.SHAPES:
+        label = f"{dt} K{K} P{P}"
+        g = bw.make_surfaces(K, bw.DTYPES[dt], "cuda")
+        H, W = g.shape[1:]
+        moved, cells = cs.d_moved(g, x0, y0, P)
+        bound_ms, by = cs.bound(moved)
+        row = dict(N=n, K=K, P=P, bytes=moved, cells=cells, bound_ms=bound_ms, bound_by=by,
+                   order=turns, launch=wd.device_per_env_config(n, K, H, W, P, P, g.dtype,
+                                                                g.device, g.data_ptr()))
+        if row["launch"]["route"] != "tma":
+            raise SystemExit(f"D {label}: this checkout would not take its \"tma\" route")
+        ref = wd.per_env_windows_reference(g, x0, y0, P)
+        for name, mod in versions.items():
+            got = mod.per_env_windows(g, x0, y0, P)
+            torch.cuda.synchronize()
+            if not torch.equal(cs._bits(got), cs._bits(ref)):
+                raise SystemExit(f"D {label} ({name}): differs from the plain version")
+        time_turns(row, versions, turns, lambda mod: lambda: mod.per_env_windows(g, x0, y0, P))
+        rows[label] = row
+        print(summary(f"D {label} N={n} launch {row['launch']}", row, versions), flush=True)
+        del g, ref
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_bench: torch.cuda.is_available() is false; this needs a CUDA card")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="k1,k2,k3", help="which of k1, k2, k3 to time")
+    ap.add_argument("--kernels", default="k1,k2,k3,d", help="which of k1, k2, k3, d to time")
     ap.add_argument("--parent", help="a checkout whose kernels to time beside this one's")
     ap.add_argument("--trace", action="store_true", help="phase breakdown of this checkout's")
     opts = ap.parse_args()
     kernels = set(opts.kernels.split(","))
-    if not kernels <= {"k1", "k2", "k3"}:
-        sys.exit(f"kernel_bench: --kernels takes k1, k2, k3; got {opts.kernels}")
+    if not kernels <= {"k1", "k2", "k3", "d"}:
+        sys.exit(f"kernel_bench: --kernels takes k1, k2, k3, d; got {opts.kernels}")
     torch.backends.cuda.matmul.allow_tf32 = False
     from agility_tpu_torch.kernels import build
 
-    names = dict(k1="contact_lcp", k2="terrain_window", k3="scandots")
+    names = dict(k1="contact_lcp", k2="terrain_window", k3="scandots", d="window_dma")
     builds = [("this", build)]
     if opts.parent:
         builds.append(("parent", load_kernel(opts.parent, "parent", "contact_lcp")[1]))
@@ -288,6 +342,8 @@ def main():
         result["k2"] = bench_k2(opts, order, bbc)
     if "k3" in kernels:
         result["k3"] = bench_k3(opts, order)
+    if "d" in kernels:
+        result["d"] = bench_d(opts, order)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "kernel_bench.json"), "w") as f:
         json.dump(result, f, indent=1)

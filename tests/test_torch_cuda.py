@@ -383,10 +383,11 @@ def test_ablation_variant_on_card(card):
                                    ("f32", 2, 5, 4), ("bf16", 1, 3, 2)])
 def test_window_dma_kernels_match_reference(card, n, shape):
     """D and E against their plain versions, bit for bit, on a 1 x 2 ... K
-    surface world of 200 x 203 (an odd width: most of D's rows unaligned):
-    D with origins anywhere up to 10 cells off the grid and with Pc != P,
-    E at its clipped origins (including off the stack); each wrapper counts
-    one launch a call, and two calls give the same bits."""
+    surface world of 200 x 203 (an odd width: D takes its "rows" route, most
+    of its rows unaligned): D with origins anywhere up to 10 cells off the
+    grid and with Pc != P, E at its clipped origins (including off the
+    stack); each wrapper counts one launch a call, and two calls give the
+    same bits."""
     from agility_tpu_torch.kernels import window_dma as wd
 
     dt, K, P, stride = shape
@@ -397,10 +398,12 @@ def test_window_dma_kernels_match_reference(card, n, shape):
     y0 = torch.randint(-10, 203, (n,), generator=gen, dtype=torch.int32).cuda()
     for Pc in (P, P + 3):
         before = wd.per_env_windows.launches
+        rows = wd.per_env_windows.route_launches["rows"]
         out = wd.per_env_windows(g, x0, y0, P, Pc)
         again = wd.per_env_windows(g, x0, y0, P, Pc)
         torch.cuda.synchronize()
         assert wd.per_env_windows.launches == before + 2
+        assert wd.per_env_windows.route_launches["rows"] == rows + 2
         ref = wd.per_env_windows_reference(g, x0, y0, P, Pc)
         bits = torch.int16 if dt == "bf16" else torch.int32
         assert torch.equal(out.view(bits), ref.view(bits))
@@ -421,16 +424,26 @@ def test_window_dma_kernels_match_reference(card, n, shape):
 
 @pytest.mark.cuda
 def test_window_dma_unaligned_and_in_range(card):
-    """D's vector rows (float32 origins at multiples of 4 and Pc = 32) and
-    scalar rows side by side, and E's element route on a stack whose base
-    is not 16-byte aligned: equal to the plain versions."""
+    """D on a 400-wide float32 grid ("tma") and on a view of it whose base
+    is 4 bytes past 16-byte alignment ("rows": vector rows where the origin
+    lands on a 16-byte boundary, scalar rows beside them), and E's element
+    route on a stack whose base is not 16-byte aligned: equal to the plain
+    versions."""
     from agility_tpu_torch.kernels import window_dma as wd
 
     g = torch.randn((5, 300, 400), device="cuda")
     x0 = torch.arange(64, dtype=torch.int32, device="cuda") * 3
     y0 = torch.arange(64, dtype=torch.int32, device="cuda") * 5
+    routes = dict(wd.per_env_windows.route_launches)
     assert torch.equal(wd.per_env_windows(g, x0, y0, 32), wd.per_env_windows_reference(
         g, x0, y0, 32))
+    flat = torch.empty(g.numel() + 1, device="cuda")
+    gu = flat[1:].view(g.shape)
+    gu.copy_(g)
+    assert torch.equal(wd.per_env_windows(gu, x0, y0, 32), wd.per_env_windows_reference(
+        g, x0, y0, 32))
+    assert wd.per_env_windows.route_launches == dict(tma=routes["tma"] + 1,
+                                                     rows=routes["rows"] + 1)
     G2 = wd.band_stack(g, 32, 64, 32, 8)
     flat = torch.empty(G2.numel() + 1, device="cuda")
     G2u = flat[1:].view(G2.shape)
@@ -438,3 +451,62 @@ def test_window_dma_unaligned_and_in_range(card):
     assert G2u.data_ptr() % 16 == 4
     out = wd.band_windows(G2u, x0, y0, 32, 64, 32, 8)
     assert torch.equal(out, wd.band_windows_reference(G2, x0, y0, 32, 64, 32, 8))
+
+
+def _off_grid_origins(n, H, W, P, Pc, gen, off=10):
+    """n origins up to `off` cells beyond every edge (negative ones
+    included), the last two windows wholly outside the grid (one above and
+    left of it, one below and right)."""
+    x0 = torch.randint(-off, H + off - P + 1, (n,), generator=gen, dtype=torch.int32)
+    y0 = torch.randint(-off, W + off - Pc + 1, (n,), generator=gen, dtype=torch.int32)
+    if n >= 2:
+        x0[-2], y0[-2] = -P, -Pc - 3
+        x0[-1], y0[-1] = H + 1, W
+    else:
+        x0[0], y0[0] = -P - 1, W + 2
+    return x0.cuda(), y0.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 1000, 6144])
+@pytest.mark.parametrize("shape", [("f32", 5, 32, 32), ("f32", 5, 32, 35), ("bf16", 3, 56, 56),
+                                   ("bf16", 3, 56, 36), ("bf16", 3, 36, 36), ("f32", 2, 5, 3),
+                                   ("bf16", 1, 3, 7)])
+def test_window_dma_tma_route_matches_reference(card, n, shape):
+    """D's "tma" route on a 200 x 208 grid (16-byte row pitch in float32 and
+    bfloat16), bit for bit against the plain version: origins up to 10
+    cells off every edge and windows wholly outside (the tensor map's zero
+    fill), Pc = P and Pc not a multiple of the 16-byte vector (35 float32,
+    36 bfloat16; 3 and 7, narrower than a vector), N not a multiple of the
+    grid; each call one launch on the "tma" route, two calls the same
+    bits.  The input's NaN payloads and negative zeros come through as
+    they are."""
+    from agility_tpu_torch.kernels import window_dma as wd
+
+    dt, K, P, Pc = shape
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    bits = torch.int16 if dt == "bf16" else torch.int32
+    H, W = 200, 208
+    gen = torch.Generator().manual_seed(n * 1000 + P * 10 + Pc)
+    g = torch.randn((K, H, W), generator=gen).to(dtype)
+    raw = g.view(bits)
+    raw[0, 0, :4] = torch.tensor([0x7FC00123, 0x7F800001, -0x80000000, 0x7FC00000],
+                                 dtype=torch.int64).to(bits) if dt == "f32" else \
+        torch.tensor([0x7FC1, 0x7F81, -0x8000, 0x7FC0], dtype=bits)
+    g = g.cuda()
+    x0, y0 = _off_grid_origins(n, H, W, P, Pc, gen)
+    x0[0], y0[0] = 0, 0
+    cfg = wd.device_per_env_config(n, K, H, W, P, Pc, dtype, g.device, g.data_ptr())
+    assert cfg["route"] == "tma" and 1 <= cfg["grid"] <= n
+    before = dict(wd.per_env_windows.route_launches)
+    out = wd.per_env_windows(g, x0, y0, P, Pc)
+    again = wd.per_env_windows(g, x0, y0, P, Pc)
+    torch.cuda.synchronize()
+    assert wd.per_env_windows.route_launches == dict(tma=before["tma"] + 2, rows=before["rows"])
+    ref = wd.per_env_windows_reference(g, x0, y0, P, Pc)
+    assert torch.equal(out.view(bits), ref.view(bits))
+    assert torch.equal(out.view(bits), again.view(bits))
+    c = min(4, Pc)
+    assert torch.equal(out[0, 0, 0, :c].view(bits).cpu(), raw[0, 0, :c])
+    if n >= 2:
+        assert not out[-2:].view(bits).any()

@@ -133,6 +133,70 @@ def test_per_env_windows_zero_outside_the_grid():
                     assert out[n, k, i, j] == want
 
 
+@pytest.mark.parametrize("dt,K,P,bw,stage_bytes,stages,smem", [
+    ("f32", 5, 32, 36, 23_040, 2, 46_240), ("bf16", 3, 56, 64, 21_504, 2, 43_168),
+    ("bf16", 3, 36, 48, 10_368, 2, 20_896)])
+def test_per_env_config_at_the_window_shapes(dt, K, P, bw, stage_bytes, stages, smem):
+    """D takes "tma" at the window A/B's three shapes on the 1800 x 1800
+    world: boxes bw = Pc + v - 1 rounded up to v = 16 / element size, a
+    stage of bw * P * K elements, two stages, the shared memory of the
+    pad, the stages and the barriers, and a grid of persistent blocks."""
+    dtype = tbw.DTYPES[dt]
+    cfg = window_dma.per_env_config(6144, K, 1800, 1800, P, P, dtype, 132, 2)
+    assert cfg == dict(route="tma", threads=256, grid=264, bw=bw, stage_bytes=stage_bytes,
+                       stages=stages, smem=smem)
+    assert window_dma.per_env_config(100, K, 1800, 1800, P, P, dtype, 132, 2)["grid"] == 100
+    assert window_dma.per_env_config(0, K, 1800, 1800, P, P, dtype, 132, 2)["grid"] == 1
+
+
+@pytest.mark.parametrize("dtype,W,base,route", [
+    (torch.float32, 208, 0, "tma"), (torch.float32, 204, 0, "tma"),
+    (torch.float32, 203, 0, "rows"), (torch.float32, 202, 0, "rows"),
+    (torch.float32, 208, 4, "rows"), (torch.float32, 208, 512, "tma"),
+    (torch.bfloat16, 208, 0, "tma"), (torch.bfloat16, 1800, 0, "tma"),
+    (torch.bfloat16, 204, 0, "rows"), (torch.bfloat16, 203, 0, "rows"),
+    (torch.bfloat16, 208, 2, "rows"), (torch.bfloat16, 208, 8, "rows")])
+def test_per_env_config_route_by_width_dtype_alignment(dtype, W, base, route):
+    """"tma" needs a row pitch of whole 16-byte units (W % 4 == 0 in float32,
+    W % 8 == 0 in bfloat16) and a 16-byte aligned base; anything else takes
+    "rows", one block an env and no shared memory."""
+    cfg = window_dma.per_env_config(50, 3, 200, W, 32, 32, dtype, 132, 2, base_ptr=base)
+    assert cfg["route"] == route
+    if route == "rows":
+        assert cfg == window_dma.rows_config(50) == dict(
+            route="rows", threads=256, grid=50, bw=0, stage_bytes=0, stages=0, smem=0)
+
+
+@pytest.mark.parametrize("K,P,Pc,dtype,route,bw,stages", [
+    (5, 32, 35, torch.float32, "tma", 40, 2),        # Pc not a multiple of v: bw 35 + 3 -> 40
+    (3, 56, 36, torch.bfloat16, "tma", 48, 2),
+    (1, 3, 3, torch.float32, "tma", 8, 2),           # narrower than a vector
+    (256, 4, 4, torch.float32, "tma", 8, 2),         # K at the box limit
+    (257, 4, 4, torch.float32, "rows", 0, 0),        # K past it
+    (1, 257, 4, torch.float32, "rows", 0, 0),        # P past it
+    (1, 4, 253, torch.float32, "tma", 256, 2),       # bw 256: at the limit
+    (1, 4, 254, torch.float32, "rows", 0, 0),        # bw 260
+    (1, 4, 249, torch.bfloat16, "tma", 256, 2),
+    (1, 4, 250, torch.bfloat16, "rows", 0, 0),       # bw 264
+    (2, 100, 100, torch.float32, "tma", 104, 2),     # 83,200 B a stage: two fit
+    (3, 100, 100, torch.float32, "rows", 0, 0),      # 124,800 B: not two
+    (1, 113, 253, torch.float32, "tma", 256, 2),     # 115,712 B: two fill 227 KB
+    (1, 114, 253, torch.float32, "rows", 0, 0),      # 116,736 B: one row too many
+    (2, 64, 64, torch.bfloat16, "tma", 72, 2),
+    (4, 128, 128, torch.bfloat16, "rows", 0, 0)])    # 139,264 B
+def test_per_env_config_limits(K, P, Pc, dtype, route, bw, stages):
+    """Box limits (256 in each dim of a TMA box) and shared memory (at least
+    two stages in 227 KB): past either, "rows"."""
+    cfg = window_dma.per_env_config(10, K, 2000, 2000, P, Pc, dtype, 132, 1)
+    esz = 4 if dtype == torch.float32 else 2
+    assert (cfg["route"], cfg["bw"], cfg["stages"]) == (route, bw, stages)
+    if route == "tma":
+        pitch = -(-cfg["stage_bytes"] // 128) * 128
+        assert cfg["stage_bytes"] == bw * P * K * esz
+        assert cfg["smem"] == 128 + stages * pitch + 32 <= window_dma.MAX_SMEM
+        assert cfg["grid"] == 10
+
+
 def test_band_windows_clip_as_jax():
     """E's origins are JAX's clips of the floor divisions, off the grid too."""
     g = torch.randn(2, 40, 50)
