@@ -1,0 +1,23 @@
+"""Tests of the benchmark's harness on the CPU; those that need a CUDA card
+carry the `card` marker and skip without one."""
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card (skips without one)")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return "cuda"
