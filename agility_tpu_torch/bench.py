@@ -7,21 +7,17 @@
 
 Prints one JSON line per stack (BBC first):
   {"metric": "env_steps_per_sec", "value": N, "unit": "env-steps/s",
-   "vs_baseline": N / 57000, "device": "<name>, <power limit>", "iter_ms": [...]}
-  {"metric": "tsc_env_steps_per_sec", ..., "vs_baseline": N / 61000, ...}
+   "device": "<name>, <power limit>", "iter_ms": [...]}
+  {"metric": "tsc_env_steps_per_sec", ...}
 
 `value` is full training-iteration throughput (rollout, GAE, PPO, the
 discriminator update, DAgger where due): the timed iterations' env-steps
 over their mean host-clock time, synchronised before the clock starts and
 after the last iteration.  `iter_ms` gives each timed iteration's time
 from CUDA events recorded between iterations (no host sync inside the
-timed loop; the host clock on the CPU).  57000 and 61000 are the
-reference's RTX 3090 training throughputs derived in BASELINE.md: a
-yardstick, not a target.  `device` is what `nvidia-smi
+timed loop; the host clock on the CPU).  `device` is what `nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader` prints for the card
-("cpu" on the CPU).  stderr carries heartbeats and the BBC's
-contact_qp_solves_per_sec (env-steps/s x decimation: one contact block
-solved per env per substep).
+("cpu" on the CPU).  stderr carries heartbeats.
 
 On a terminal error (no card without --device cpu included) it prints,
 for each line not yet printed, a well-formed line with value 0 and an
@@ -56,7 +52,7 @@ from agility_tpu_torch.envs.config import EnvCfg, Go2LocomotionCfg, SimCfg, Terr
 from agility_tpu_torch.envs.tsc_config import Go2AgilityCfg
 from agility_tpu_torch.learn.ssinfogail import AlgoCfg
 
-BASELINES = {"env_steps_per_sec": 57000.0, "tsc_env_steps_per_sec": 61000.0}
+METRICS = ("env_steps_per_sec", "tsc_env_steps_per_sec")
 _T0 = time.time()
 
 
@@ -65,11 +61,11 @@ def _beat(msg):
     sys.stderr.flush()
 
 
-def _fail_json(err, metrics=tuple(BASELINES)):
+def _fail_json(err, metrics=METRICS):
     """Terminal failure: still emit a well-formed line for each of `metrics`."""
     for metric in metrics:
         print(json.dumps({"metric": metric, "value": 0.0, "unit": "env-steps/s",
-                          "vs_baseline": 0.0, "error": str(err)[:500]}), flush=True)
+                          "error": str(err)[:500]}), flush=True)
 
 
 def bbc_config(num_envs: int, cold: bool = False) -> Go2LocomotionCfg:
@@ -160,8 +156,7 @@ def line(metric: str, steps_per_iter: int, dt: float, device: torch.device,
          iter_ms: List[float]) -> dict:
     rate = steps_per_iter / dt
     return {"metric": metric, "value": round(rate, 1), "unit": "env-steps/s",
-            "vs_baseline": round(rate / BASELINES[metric], 3), "device": device_label(device),
-            "iter_ms": [round(t, 3) for t in iter_ms]}
+            "device": device_label(device), "iter_ms": [round(t, 3) for t in iter_ms]}
 
 
 def bench_bbc(device="cuda", num_envs: int = 4096, iters: int = 5, fast: bool = False,
@@ -188,8 +183,6 @@ def bench_bbc(device="cuda", num_envs: int = 4096, iters: int = 5, fast: bool = 
     out = line("env_steps_per_sec", algo_cfg.num_steps_per_env * cfg.env.num_envs, dt, device,
                iter_ms)
     _beat(f"measured {dt * 1e3:.1f} ms/iter")
-    solves = algo_cfg.num_steps_per_env * cfg.env.num_envs / dt * cfg.control.decimation
-    sys.stderr.write(f"contact_qp_solves_per_sec: {solves:,.0f}\n")
     return out, dt
 
 
@@ -234,7 +227,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     k = knobs()
-    pending = ["env_steps_per_sec"] + (["tsc_env_steps_per_sec"] if k["tsc"] else [])
+    pending = list(METRICS if k["tsc"] else METRICS[:1])
     try:
         device = torch.device(args.device)
         if device.type == "cuda" and not torch.cuda.is_available():

@@ -33,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.envs.config import MOCAP_CATEGORIES
 from agility_tpu_torch.cli import registry
 from agility_tpu_torch.core import quat as qm
@@ -67,6 +68,9 @@ def get_args(argv=None):
                    help="path to a bands artifact (tools/make_gait_bands.py; the real-clip "
                         "bands are agility_tpu_torch/assets/gait_bands_real.json); implies "
                         "--compare_gait and replaces the live-derived bands")
+    p.add_argument("--trace", action="store_true",
+                   help="record spans over the program's layers (agility_tpu_torch/trace.py) "
+                        "and print each one's calls and ms at the end")
     p.add_argument("--interactive", action="store_true",
                    help="curses keyboard play: live telemetry panel, W/S/A/D velocity, 1-5 "
                         "mode, height keys")
@@ -84,7 +88,14 @@ def build(args, overrides=None):
     policy, device, hold), where hold(state) sets the command and behaviour
     mode before each control step.  `overrides` are further dotted-key
     config overrides (registry.apply_overrides), e.g. {"sim.solver": "soft"}
-    for another contact model."""
+    for another contact model.  With --trace, tracing is on from here."""
+    if args.trace:
+        trace.enable(args.device)
+    with trace.span("build", sync=True):
+        return _build(args, overrides)
+
+
+def _build(args, overrides):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
@@ -103,16 +114,18 @@ def build(args, overrides=None):
                 "domain_rand.randomize_base_com": False,
                 "domain_rand.randomize_motor": False, "domain_rand.action_delay": False})
     cfg = registry.apply_overrides(cfg, **(overrides or {}))
-    env = Go2LocomotionEnv(cfg, device, seed=0)
+    with trace.span("build.env"):
+        env = Go2LocomotionEnv(cfg, device, seed=0)
     path = args.checkpoint or ckpt.latest(
         os.path.join(args.log_root, args.task, str(args.experiment_idx)))
-    if path:
-        print(f"loading {path}")
-        weights = ckpt.params_from_jax(ckpt.read_msgpack(path))
-    else:
-        print("WARNING: no checkpoint found — evaluating an untrained policy")
-        weights = None
-    policy = build_policy(cfg, weights, device, seed=0)
+    with trace.span("build.checkpoint"):
+        if path:
+            print(f"loading {path}")
+            weights = ckpt.params_from_jax(ckpt.read_msgpack(path))
+        else:
+            print("WARNING: no checkpoint found — evaluating an untrained policy")
+            weights = None
+        policy = build_policy(cfg, weights, device, seed=0)
 
     N = args.num_envs
     cmd = torch.tensor([args.vx, args.vy, args.wz, 0.0, 0.30], device=device).expand(N, 5)
@@ -188,10 +201,21 @@ def run(args, overrides=None) -> dict:
         print(f"trajectory written to {args.dump}")
     compared = (compare_gait(args, env, traj["contact"])
                 if args.compare_gait or args.gait_bands else None)
+    if trace.ON:
+        print_spans()
     # substeps include init_state's zero-action step
     return dict(env=env, policy=policy, hold=hold, state=state, env_steps_per_s=steps_per_s,
                 substeps=(args.steps + 1) * env.engine_cfg.decimation, traj=traj,
                 gait=compared)
+
+
+def print_spans() -> None:
+    """Each span's calls, ms (CUDA-event time where recorded, else host) and
+    ms a call, in the order they first closed."""
+    for name, st in trace.summary().items():
+        ms = st["device_ms"] if st["device_ms"] is not None else st["host_ms"]
+        print(f"span {name:<22} {st['count']:7d} calls {ms:12.3f} ms "
+              f"{ms / st['count']:10.4f} ms a call  (in {st['parent']})")
 
 
 def main(argv=None):

@@ -26,6 +26,7 @@ import os
 
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.cli import registry
 from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
@@ -52,6 +53,9 @@ def get_args(argv=None):
                         "mocap_all_ulb/); synthetic gaits if omitted")
     p.add_argument("--log_root", default="logs")
     p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--trace", action="store_true",
+                   help="record spans over the program's layers (agility_tpu_torch/trace.py) and "
+                        "write each one's ms per iteration as perf/<span>_ms at every log point")
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's multi-node group (one process per card on "
                         "every host); implies --shard")
@@ -68,7 +72,15 @@ def get_args(argv=None):
 
 
 def build(args) -> OnPolicyRunner:
-    """The env and the runner (resumed where asked), ready to learn."""
+    """The env and the runner (resumed where asked), ready to learn; with
+    --trace, tracing on from here."""
+    if args.trace:
+        trace.enable(args.device)
+    with trace.span("build", sync=True):
+        return _build(args)
+
+
+def _build(args) -> OnPolicyRunner:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
@@ -92,13 +104,16 @@ def build(args) -> OnPolicyRunner:
     shard = None
     if args.shard or args.multihost:
         shard, device = mesh.join(device, cfg.env.num_envs, args.multihost)
-    env = Go2LocomotionEnv(cfg, device, seed=args.seed, shard=shard)
-    runner = OnPolicyRunner(env, make_algo_cfg(), log_dir=log_dir, seed=args.seed)
+    with trace.span("build.env"):
+        env = Go2LocomotionEnv(cfg, device, seed=args.seed, shard=shard)
+    with trace.span("build.trainer"):
+        runner = OnPolicyRunner(env, make_algo_cfg(), log_dir=log_dir, seed=args.seed)
     if args.resume or args.checkpoint:
         path = args.checkpoint or ckpt.latest(log_dir)
         if path:
             print(f"resuming from {path}")
-            runner.load(path)
+            with trace.span("build.checkpoint"):
+                runner.load(path)
         elif args.resume:
             print("no checkpoint found; starting fresh")
     return runner

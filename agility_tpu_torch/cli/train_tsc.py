@@ -32,6 +32,7 @@ import os
 
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.cli import registry
 from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_agility import Go2AgilityEnv
@@ -68,6 +69,9 @@ def get_args(argv=None):
                    help="on resume, reset the continuous-head std to this value")
     p.add_argument("--log_root", default="logs")
     p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--trace", action="store_true",
+                   help="record spans over the program's layers (agility_tpu_torch/trace.py) and "
+                        "write each one's ms per iteration as perf/<span>_ms at every log point")
     p.add_argument("--debug", action="store_true", help="64 envs, 8 courses")
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's multi-node group (one process per card on "
@@ -80,7 +84,15 @@ def get_args(argv=None):
 
 def build(args):
     """The env and the runner, ready to learn: the teacher's (resumed where
-    asked) or, with --use_camera, the student's on the loaded teacher."""
+    asked) or, with --use_camera, the student's on the loaded teacher; with
+    --trace, tracing on from here."""
+    if args.trace:
+        trace.enable(args.device)
+    with trace.span("build", sync=True):
+        return _build(args)
+
+
+def _build(args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
@@ -112,10 +124,13 @@ def build(args):
                              "one process, not under a group of several ranks")
     elif args.shard or args.multihost:
         shard, device = mesh.join(device, cfg.env.num_envs, args.multihost)
-    env = Go2AgilityEnv(cfg, device, seed=args.seed, shard=shard)
-    runner = TscOnPolicyRunner(env, ckpt.load_bbc_frozen(args.bbc_path, seed=args.seed),
-                               make_algo_cfg(), log_dir=None if args.use_camera else log_dir,
-                               seed=args.seed)
+    with trace.span("build.env"):
+        env = Go2AgilityEnv(cfg, device, seed=args.seed, shard=shard)
+    with trace.span("build.checkpoint"):
+        bbc = ckpt.load_bbc_frozen(args.bbc_path, seed=args.seed)
+    with trace.span("build.trainer"):
+        runner = TscOnPolicyRunner(env, bbc, make_algo_cfg(),
+                                   log_dir=None if args.use_camera else log_dir, seed=args.seed)
     if args.use_camera:
         return _student(args, runner, log_dir)
     if args.resumeid:

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.core import quat as qm
 from agility_tpu_torch.core.urdf import build_go2_model
 from agility_tpu_torch.dist import mesh
@@ -408,6 +409,7 @@ class Go2AgilityEnv:
     # step (takes the BBC's joint-space actions)
     # ==================================================================
 
+    @trace.spanned("env.step")
     def step(self, state: AgilityState, actions_bbc: torch.Tensor
              ) -> Tuple[AgilityState, TscStepOutput]:
         cfg = self.cfg
@@ -549,6 +551,7 @@ class Go2AgilityEnv:
         g = torch.clamp(goal_idx, 0, self.n_goals_total - self.last_goal_repeat - 1)
         return torch.gather(self.obst_types, 1, (g // self.num_goals)[:, None])[:, 0]
 
+    @trace.spanned("env.reset")
     def _reset_where(self, state: AgilityState, mask,
                      draws: Optional[ResetDraws] = None) -> AgilityState:
         """Masked reset: envs where `mask` get a fresh start pose at their
@@ -606,6 +609,7 @@ class Go2AgilityEnv:
 
     # ------------------------------------------------------------------
 
+    @trace.spanned("env.scandots")
     def _measure_heights(self, state, base_pos, base_quat):
         """Scandot floor heights (N, 132) through K3: the window is centred on
         the yaw-rotated scan-grid centre and sized to its radius, so every
@@ -615,6 +619,7 @@ class Go2AgilityEnv:
         return scandots(self.grid, centers.contiguous(), self.scan_size, self._weights(state),
                         pts[..., 0].contiguous(), pts[..., 1].contiguous())
 
+    @trace.spanned("env.obs")
     def _compute_observations(self, state: AgilityState):
         cfg = self.cfg
         osc = cfg.obs_scales
@@ -657,6 +662,7 @@ class Go2AgilityEnv:
 
     # ------------------------------------------------------------------
 
+    @trace.spanned("env.reward")
     def _compute_reward(self, q):
         """Parkour reward terms (scales pre-multiplied by dt, zero-scale terms
         pruned) plus the termination penalty after the positive clip."""

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.core import quat as qm
 from agility_tpu_torch.core.urdf import build_go2_model
 from agility_tpu_torch.dist.mesh import EnvShard
@@ -262,6 +263,7 @@ class Go2LocomotionEnv:
 
     # ==================================================================
 
+    @trace.spanned("env.step")
     def step(self, state: LocoState, actions: torch.Tensor) -> Tuple[LocoState, StepOutput]:
         cfg = self.cfg
         dr = cfg.domain_rand
@@ -384,6 +386,7 @@ class Go2LocomotionEnv:
         wz = wz * (torch.abs(wz) > cfg.ang_vel_yaw_clip)
         return torch.stack([vx, vy, wz, jump_h, loco_h], dim=-1)
 
+    @trace.spanned("env.reset")
     def _reset_where(self, state: LocoState, mask) -> LocoState:
         """Masked reset: envs where `mask` get a fresh mocap (or default) pose,
         latents and commands, and zeroed buffers."""
@@ -428,6 +431,7 @@ class Go2LocomotionEnv:
 
     # ------------------------------------------------------------------
 
+    @trace.spanned("env.obs")
     def _compute_observations(self, state: LocoState):
         cfg = self.cfg
         osc = cfg.normalization.obs_scales
@@ -465,6 +469,7 @@ class Go2LocomotionEnv:
 
     # ------------------------------------------------------------------
 
+    @trace.spanned("env.reward")
     def _compute_reward(self, q):
         """Active reward terms (scales pre-multiplied by dt, zero-scale terms pruned)."""
         cfg = self.cfg.rewards

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.learn import networks as nets
 
 
@@ -19,6 +20,7 @@ class InferencePolicy(nn.Module):
         self.ac = ac
         self.est = est
 
+    @trace.spanned("policy")
     @torch.no_grad()
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         s = self.ac.slices

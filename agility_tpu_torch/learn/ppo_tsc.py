@@ -34,6 +34,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_agility import AgilityState, Go2AgilityEnv
 from agility_tpu_torch.learn import networks as nets
@@ -183,6 +184,7 @@ class TscPPO:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
+    @trace.spanned("rollout.disc_reward")
     def disc_reward(self, disc_hist, task_reward):
         """The frozen-disc style reward mix (tsc discriminator.py:13-108):
         (0.05 r_i + 2.0 r_t, r_i) from the disc window (N, L, 49)."""
@@ -215,16 +217,19 @@ class TscPPO:
         L = disc_hist.shape[1]
         for t in range(T):
             obs, obs_bbc = es.obs_buf, es.obs_bbc_buf
-            obs_est = obs.clone()
-            obs_est[:, s.explicit] = ts.est(obs[:, :s.n_prop_hist])
-            logits_d, mean_c, _ = ts.ac.heads(obs_est, hist_encoding)
-            actions = tnets.hybrid_sample(logits_d, mean_c, std, gumbel[t], normal[t])
-            logp_d, logp_c = tnets.hybrid_log_prob(logits_d, mean_c, std, actions)
-            values = ts.ac.value(obs)
-
-            es2, next_commands = self.env.set_commands(es, actions)
-            # the frozen BBC acts on this state's obs_bbc with the fresh commands
-            es3, out = self.env.step(es2, bbc_act(self.bbc_ac, obs_bbc, next_commands))
+            with trace.span("rollout.act"):
+                obs_est = obs.clone()
+                obs_est[:, s.explicit] = ts.est(obs[:, :s.n_prop_hist])
+                logits_d, mean_c, _ = ts.ac.heads(obs_est, hist_encoding)
+                actions = tnets.hybrid_sample(logits_d, mean_c, std, gumbel[t], normal[t])
+                logp_d, logp_c = tnets.hybrid_log_prob(logits_d, mean_c, std, actions)
+                values = ts.ac.value(obs)
+                with trace.span("rollout.set_commands"):
+                    es2, next_commands = self.env.set_commands(es, actions)
+                # the frozen BBC acts on this state's obs_bbc with the fresh commands
+                with trace.span("rollout.bbc_act"):
+                    actions_bbc = bbc_act(self.bbc_ac, obs_bbc, next_commands)
+            es3, out = self.env.step(es2, actions_bbc)
 
             # disc window with terminal patching, restarted after the reward
             patched = torch.where(out.reset[:, None], out.terminal_disc_obs, out.disc_obs)
@@ -365,9 +370,9 @@ class TscPPO:
     # ------------------------------------------------------------------
 
     def mark(self, stage: str) -> None:
-        """Hand the timer a stage's name, once its work is enqueued."""
-        if self.timer is not None:
-            self.timer(stage)
+        """Hand the timer a stage's name, once its work is enqueued (a span
+        boundary with tracing on: trace.mark)."""
+        trace.mark(self.timer, stage)
 
     def train_iteration(self, ts: TscTrainState, es: AgilityState, disc_hist, it: int,
                         draws: Optional[TscDraws] = None):

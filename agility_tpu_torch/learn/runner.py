@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv, LocoState
 from agility_tpu_torch.io import checkpoint as ckpt
@@ -34,6 +35,18 @@ from agility_tpu_torch.physics import engine as eng
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def write_spans(writer, it: int, iterations: int) -> None:
+    """With tracing on (trace.enable; the CLIs' --trace), each span's ms per
+    iteration over the `iterations` since the last log point, as
+    perf/<span>_ms at step `it`; the records are then forgotten.  Without a
+    writer they are left to whoever turned tracing on."""
+    if not (trace.ON and writer):
+        return
+    for name, ms in trace.per_unit_ms(iterations).items():
+        writer.scalar(f"perf/{name}_ms", ms, it)
+    trace.reset()
 
 
 def tree_shapes(tree, prefix=""):
@@ -170,11 +183,13 @@ class OnPolicyRunner:
             if (it + 1) % log_every == 0 or it == start_iter:
                 m = metrics_to_host(metrics)   # waits for the device
                 now = time.time()
-                fps = (it + 1 - it_window) * steps_per_iter / max(now - t_window, 1e-9)
+                n = it + 1 - it_window
+                fps = n * steps_per_iter / max(now - t_window, 1e-9)
                 t_window, it_window = now, it + 1
                 if self.writer:
                     self.writer.scalars(m, it)
                     self.writer.scalar("perf/fps", fps, it)
+                    write_spans(self.writer, it, n)
                     self.writer.flush()
                 say(f"it {it:6d} | r_total {m['rollout/r_total']:+.4f} "
                       f"| r_t {m['rollout/r_t']:+.4f} "

@@ -24,7 +24,8 @@ from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.io.metrics import MetricWriter
 from agility_tpu_torch.learn.ppo_tsc import BBCFrozen, TscAlgoCfg, TscPPO
 from agility_tpu_torch.learn.runner import (env_state_tree, is_writer, read_full_state,
-                                            restore_env_state, save_checkpoints, sync)
+                                            restore_env_state, save_checkpoints, sync,
+                                            write_spans)
 from agility_tpu_torch.learn.ssinfogail import metrics_to_host
 
 
@@ -67,13 +68,15 @@ class TscOnPolicyRunner:
                                      "Train/goal_progress": es.goal_progress})
                 train = {k: m.pop(k) for k in list(m) if k.startswith("Train/")}
                 now = time.time()
-                fps = (it + 1 - it_window) * steps_per_iter / max(now - t_window, 1e-9)
+                n = it + 1 - it_window
+                fps = n * steps_per_iter / max(now - t_window, 1e-9)
                 t_window, it_window = now, it + 1
                 if self.writer:
                     self.writer.scalars(m, it)
                     self.writer.scalar("perf/fps", fps, it)
                     for k, v in train.items():
                         self.writer.scalar(k, v, it)
+                    write_spans(self.writer, it, n)
                     self.writer.flush()
                 say(f"it {it:6d} | r {m['rollout/r_total']:+.4f} "
                       f"| r_t {m['rollout/r_t']:+.4f} "

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.dist import mesh
 from agility_tpu_torch.envs import mocap as mocap_mod
 from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv, LocoState
@@ -317,6 +318,7 @@ class SSInfoGAIL:
         return self._apply_task_weight(
             x.reshape(B, self.disc_obs_len, self.num_disc_obs), ts.task_obs_weight).reshape(B, -1)
 
+    @trace.spanned("rollout.disc_reward")
     def disc_reward(self, ts: TrainState, obs, disc_hist, task_reward):
         """(total, r_i, r_us, r_ss) of a step, from the disc window (N, L, 49)."""
         cfg = self.cfg
@@ -360,13 +362,14 @@ class SSInfoGAIL:
         std = ts.ac.std.detach().clone()   # the PPO update changes the parameter in place
         for t in range(T):
             obs = es.obs_buf
-            # estimator swap-in for acting (gail.py:182-186)
-            obs_est = obs.clone()
-            obs_est[:, s.explicit] = ts.est(obs[:, s.prop])
-            mean = ts.ac.action_mean(obs_est, hist_encoding)
-            actions = mean + std * action_noise[t]
-            logp = nets.gaussian_log_prob(mean, std, actions)
-            values = ts.ac.value(obs)
+            with trace.span("rollout.act"):
+                # estimator swap-in for acting (gail.py:182-186)
+                obs_est = obs.clone()
+                obs_est[:, s.explicit] = ts.est(obs[:, s.prop])
+                mean = ts.ac.action_mean(obs_est, hist_encoding)
+                actions = mean + std * action_noise[t]
+                logp = nets.gaussian_log_prob(mean, std, actions)
+                values = ts.ac.value(obs)
 
             es2, out = self.env.step(es, actions)
 
@@ -622,9 +625,9 @@ class SSInfoGAIL:
     # ------------------------------------------------------------------
 
     def mark(self, stage: str) -> None:
-        """Hand the timer a stage's name, once its work is enqueued."""
-        if self.timer is not None:
-            self.timer(stage)
+        """Hand the timer a stage's name, once its work is enqueued (a span
+        boundary with tracing on: trace.mark)."""
+        trace.mark(self.timer, stage)
 
     def train_iteration(self, ts: TrainState, es: LocoState, disc_hist, it: int,
                         draws: Optional[Draws] = None):

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.envs.go2_agility import AgilityState, Go2AgilityEnv
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.io.metrics import MetricWriter
@@ -47,6 +48,7 @@ from agility_tpu_torch.learn import depth as dm
 from agility_tpu_torch.learn import networks as nets
 from agility_tpu_torch.learn import networks_tsc as tnets
 from agility_tpu_torch.learn.policy_tsc import bbc_act
+from agility_tpu_torch.learn.runner import write_spans
 from agility_tpu_torch.learn.ssinfogail import clip_grad_global_norm_, metrics_to_host
 from agility_tpu_torch.render import raycast
 
@@ -152,9 +154,9 @@ class TscVision:
             hidden=enc.init_hidden(self.env.num_envs), it=0)
 
     def mark(self, stage: str) -> None:
-        """Hand the timer a stage's name, once its work is enqueued."""
-        if self.timer is not None:
-            self.timer(stage)
+        """Hand the timer a stage's name, once its work is enqueued (a span
+        boundary with tracing on: trace.mark)."""
+        trace.mark(self.timer, stage)
 
     def n_refresh(self) -> int:
         return math.ceil(self.cfg.num_steps_per_env / self.env.cfg.depth.update_interval)
@@ -365,7 +367,7 @@ class VisionRunner:
         self.last_metrics = None
 
     def learn(self, num_iterations: int, log_every: int = 10):
-        start = self.current_iteration
+        start = it_log = self.current_iteration
         for it in range(start, start + num_iterations):
             t0 = time.time()
             self.train_state, self.env_state, metrics = self.alg.train_iteration(
@@ -376,7 +378,9 @@ class VisionRunner:
                 m = metrics_to_host(metrics)
                 if self.writer:
                     self.writer.scalars(m, it)
+                    write_spans(self.writer, it, it + 1 - it_log)
                     self.writer.flush()
+                it_log = it + 1
                 print(f"it {it:6d} | actor {m['vision/actor']:.4f} | yaw {m['vision/yaw']:.4f} "
                       f"| byol {m['vision/byol']:.4f} | {time.time() - t0:.2f}s/iter", flush=True)
             if self.log_dir and (it + 1) % self.save_interval == 0:

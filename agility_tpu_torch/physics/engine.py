@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.core import quat as qm
 from agility_tpu_torch.kernels.terrain_window import terrain_window
 from agility_tpu_torch.physics import contact as ct
@@ -265,6 +266,7 @@ def uses_soa(cfg: EngineConfig, grid) -> bool:
     return cfg.soa and cfg.solver == "jacobi" and not cfg.pallas_contact
 
 
+@trace.spanned("engine")
 def step_batch(mc: ModelConsts, cfg: EngineConfig, grid, s: EnvState, control: Control,
                params: EnvParams):
     """The batched control-step entry point used by the env layer: the SoA

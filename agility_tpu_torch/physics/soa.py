@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from agility_tpu_torch import trace
 from agility_tpu_torch.kernels.contact_lcp import contact_lcp
 from agility_tpu_torch.kernels.terrain_window import terrain_window
 from agility_tpu_torch.physics.constants import ModelConsts, SoAConsts, consts_of
@@ -529,6 +530,7 @@ def contact_problem(phi, n, r, lever, f, u_free, mu, dt, *, baumgarte, slop,
             lam0_e)
 
 
+@trace.spanned("engine.contact")
 def jacobi_solve(phi, n, r, lever, f, u_free, mu, dt, *, iters, relax, baumgarte,
                  slop, max_depen_vel, restitution, lam_max=25.0, lam0=None):
     """Projected block-Jacobi contact solve through K1: same fixed point and
@@ -594,6 +596,7 @@ class SoAState(NamedTuple):
     u: torch.Tensor     # (18, N)
 
 
+@trace.spanned("engine.free_dynamics")
 def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
                 ceil_sampler=None):
     """A substep up to the contact solve: PD torques, the factored mass
@@ -637,6 +640,7 @@ def contact_kwargs(cfg):
                 max_depen_vel=cfg.max_depenetration_vel, restitution=cfg.restitution)
 
 
+@trace.spanned("engine.substep")
 def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
             ceil_sampler=None, lam0=None):
     """One physics substep in env-minor layout.
@@ -654,8 +658,14 @@ def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
         p["phi"], p["n"], p["r"], p["lever"], f, p["u_free"], prm["friction"], cfg.dt,
         iters=cfg.jacobi_iters, relax=cfg.jacobi_relax, lam0=lam0, **contact_kwargs(cfg))
 
-    # integration: base-velocity backstop, limit impulses, semi-implicit
-    # Euler, then the residual joint clamp — in that order
+    with trace.span("engine.integrate"):
+        sd2 = integrate(c, cfg, sd, f, u_new)
+    return sd2, (tau_j, tau_org), force, lam
+
+
+def integrate(c: SoAConsts, cfg, sd: SoAState, f, u_new) -> SoAState:
+    """The substep's integration: base-velocity backstop, limit impulses,
+    semi-implicit Euler, then the residual joint clamp — in that order."""
     u_arr = torch.stack(u_new)
     u_arr = torch.cat([torch.clamp(u_arr[0:3], -100.0, 100.0),
                        torch.clamp(u_arr[3:6], -50.0, 50.0), u_arr[6:]])
@@ -671,8 +681,7 @@ def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
         qd2 = torch.where(q2c == q2, qd2, 0.0)
         q2 = q2c
         qd2 = torch.minimum(torch.maximum(qd2, -c.vel_limit), c.vel_limit)
-    u_arr = torch.cat([u_arr[:6], qd2], dim=0)
-    return SoAState(bp=bp2, bq=bq2, q=q2, u=u_arr), (tau_j, tau_org), force, lam
+    return SoAState(bp=bp2, bq=bq2, q=q2, u=torch.cat([u_arr[:6], qd2], dim=0))
 
 
 def batch_inputs(cfg, grid, s, control, params):
@@ -685,8 +694,9 @@ def batch_inputs(cfg, grid, s, control, params):
     prm = dict(kp_scale=params.kp_scale.T, kd_scale=params.kd_scale.T,
                friction=params.friction, added_mass=params.added_base_mass,
                com_shift=tuple(params.base_com_shift.unbind(1)))
-    patch = terrain_window(grid, s.base_pos[:, :2].contiguous(), cfg.patch_size,
-                           params.hf_weights)
+    with trace.span("engine.terrain_window"):
+        patch = terrain_window(grid, s.base_pos[:, :2].contiguous(), cfg.patch_size,
+                               params.hf_weights)
     vals_T = patch.values.permute(1, 2, 0)                  # (P, P, N)
 
     def sampler(x, y):

@@ -16,7 +16,7 @@ from agility_tpu_torch import bench
 from agility_tpu_torch.learn.ppo_tsc import TscPPO
 from agility_tpu_torch.learn.ssinfogail import SSInfoGAIL
 
-KEYS = {"metric", "value", "unit", "vs_baseline"}     # the root bench's keys
+KEYS = {"metric", "value", "unit"}     # the root bench's keys but its vs_baseline
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -86,7 +86,6 @@ def _check_line(out, dt, metric, steps_per_iter):
     assert set(out) == KEYS | {"device", "iter_ms"}
     assert out["metric"] == metric and out["unit"] == "env-steps/s" and out["device"] == "cpu"
     assert out["value"] == round(steps_per_iter / dt, 1) > 0
-    assert out["vs_baseline"] == round(steps_per_iter / dt / bench.BASELINES[metric], 3)
     assert len(out["iter_ms"]) == 1 and out["iter_ms"][0] > 0
 
 

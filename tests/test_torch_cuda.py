@@ -349,7 +349,7 @@ def test_bench_lines_on_card(card):
                                "tsc_env_steps_per_sec")):
         assert out["metric"] == metric and out["unit"] == "env-steps/s"
         assert out["value"] == round(24 * 64 / dt, 1) > 0 and math.isfinite(out["value"])
-        assert out["vs_baseline"] == round(24 * 64 / dt / bench.BASELINES[metric], 3)
+        assert "vs_baseline" not in out
         assert len(out["iter_ms"]) == 1 and out["iter_ms"][0] > 0
         assert out["device"].startswith(torch.cuda.get_device_name(0))
 
