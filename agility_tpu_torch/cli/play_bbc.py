@@ -41,6 +41,7 @@ from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.io import gait
 from agility_tpu_torch.learn.policy import build_policy
+from agility_tpu_torch.physics.soa import FREE_DYNAMICS
 
 WARMUP = 10  # leading control steps left out of the env-steps/s figure
 TRANSIENT = 100  # leading control steps left out of the gait statistics (when steps > 200)
@@ -211,11 +212,14 @@ def run(args, overrides=None) -> dict:
 
 def print_spans() -> None:
     """Each span's calls, ms (CUDA-event time where recorded, else host) and
-    ms a call, in the order they first closed."""
+    ms a call, in the order they first closed; then how often the free
+    dynamics' CUDA graph was captured and replayed."""
     for name, st in trace.summary().items():
         ms = st["device_ms"] if st["device_ms"] is not None else st["host_ms"]
         print(f"span {name:<22} {st['count']:7d} calls {ms:12.3f} ms "
               f"{ms / st['count']:10.4f} ms a call  (in {st['parent']})")
+    print(f"free dynamics graph: {FREE_DYNAMICS.captures} captures, "
+          f"{FREE_DYNAMICS.replays} replays")
 
 
 def main(argv=None):

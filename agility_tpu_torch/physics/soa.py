@@ -19,8 +19,10 @@ Same math as the JAX module:
   - Terrain: the per-env window is gathered once per control step by kernel
     K2 (kernels/terrain_window.py), with the movable layers folded in.
 
-Run op by op in eager torch this is many small kernel launches per substep;
-that is the measured starting point for later fusion (PERF.md).
+Run op by op in eager torch the free dynamics (`pre_contact`) are ~13,500
+small kernel launches a substep.  On a CUDA device the substep replays them
+from a CUDA graph (`free_dynamics`, physics/graphs.py), captured once for
+each structure; the contact solve, K1 and the integration stay eager.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 from agility_tpu_torch import trace
 from agility_tpu_torch.kernels.contact_lcp import contact_lcp
 from agility_tpu_torch.kernels.terrain_window import terrain_window
+from agility_tpu_torch.physics import graphs
 from agility_tpu_torch.physics.constants import ModelConsts, SoAConsts, consts_of
 
 # ---------------------------------------------------------------------------
@@ -584,6 +587,22 @@ def patch_sample_ceiling(ceil_vals_T, patch_x0, patch_y0, origin, hscale, x, y):
     return h, (-n[0], -n[1], -n[2])
 
 
+class PatchSampler(NamedTuple):
+    """`sampler(x, y)` -> (h (S, N), n Vec3 of (S, N)) over a per-env terrain
+    window: `patch_sample_hn`, or with `ceiling` `patch_sample_ceiling`.  It
+    holds its tensors, so that `free_dynamics` can copy them into a graph."""
+    values_T: torch.Tensor      # (P, P, N)
+    x0: torch.Tensor            # (N,) the window's first cell on the grid
+    y0: torch.Tensor
+    origin: tuple               # the grid's (x, y) of node (0, 0)
+    hscale: float
+    ceiling: bool = False
+
+    def __call__(self, x, y):
+        sample = patch_sample_ceiling if self.ceiling else patch_sample_hn
+        return sample(self.values_T, self.x0, self.y0, self.origin, self.hscale, x, y)
+
+
 # ---------------------------------------------------------------------------
 # substep + control step
 # ---------------------------------------------------------------------------
@@ -634,6 +653,72 @@ def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler
                 tau_org=tau_org)
 
 
+FREE_DYNAMICS = graphs.GraphCache()     # its `captures` and `replays` count the graph path
+
+
+def _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler):
+    """pre_contact's tensors: (those of the substep, the samplers' over the
+    control step)."""
+    args = [*sd, target, kp, kd, prm["kp_scale"], prm["kd_scale"]]
+    if prm.get("added_mass") is not None:
+        args.append(prm["added_mass"])
+    if prm.get("com_shift") is not None:
+        args += prm["com_shift"]
+    held = [t for smp in (sampler, ceil_sampler) if smp is not None
+            for t in (smp.values_T, smp.x0, smp.y0)]
+    return args, held
+
+
+def free_dynamics_key(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
+                      ceil_sampler=None):
+    """What a graph of pre_contact fixes: the model (its constants are read
+    by address), the values folded in as Python numbers (dt, gravity, the
+    samplers' grid origin and spacing), the matmul precision of the
+    samplers' contractions, which optional inputs are given, and each
+    input's shape, dtype and device (N, P, the ceiling rows)."""
+    args, held = _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler)
+    return (id(mc), cfg.dt, tuple(cfg.gravity), torch.backends.cuda.matmul.allow_tf32,
+            prm.get("added_mass") is not None, prm.get("com_shift") is not None,
+            tuple((smp.origin, smp.hscale, smp.ceiling) if smp is not None else None
+                  for smp in (sampler, ceil_sampler)),
+            tuple((t.shape, t.dtype, t.device) for t in args + held))
+
+
+def free_dynamics(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
+                  ceil_sampler=None):
+    """pre_contact's results.  Where every input is on a CUDA device and the
+    samplers are PatchSamplers they come from a CUDA graph of pre_contact,
+    one for each `free_dynamics_key` (FREE_DYNAMICS): the inputs are copied
+    into the graph's own, the samplers' only when they are other tensors
+    than the last call's, and the graph replayed.  The results are then the
+    graph's tensors, which the next call with the key overwrites.  Anything
+    else runs pre_contact eagerly."""
+    if not all(smp is None or isinstance(smp, PatchSampler) for smp in (sampler, ceil_sampler)):
+        return pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+    args, held = _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler)
+    if not all(t.is_cuda for t in args + held):
+        return pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+    has_mass, has_com = prm.get("added_mass") is not None, prm.get("com_shift") is not None
+
+    def body(args, held):
+        a, h = iter(args), iter(held)
+        sd_ = SoAState(*(next(a) for _ in range(4)))
+        target_, kp_, kd_ = next(a), next(a), next(a)
+        prm_ = dict(kp_scale=next(a), kd_scale=next(a))
+        if has_mass:
+            prm_["added_mass"] = next(a)
+        if has_com:
+            prm_["com_shift"] = (next(a), next(a), next(a))
+        smp_ = [None if smp is None else smp._replace(values_T=next(h), x0=next(h), y0=next(h))
+                for smp in (sampler, ceil_sampler)]
+        # the function pre_contact's span wraps: nothing traced inside a graph
+        return pre_contact.__wrapped__(mc, cfg, sd_, target_, kp_, kd_, prm_, *smp_)
+
+    with trace.span("engine.free_dynamics"):
+        key = free_dynamics_key(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+        return FREE_DYNAMICS(key, mc, body, args, held)
+
+
 def contact_kwargs(cfg):
     """The contact-solve settings of an EngineConfig."""
     return dict(baumgarte=cfg.baumgarte, slop=cfg.contact_slop,
@@ -650,9 +735,10 @@ def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
     Vec3 of (N,)); sampler(x, y) -> (h (S, N), n Vec3 of (S, N));
     ceil_sampler likewise for the ceiling, or None.
     Returns (SoAState, (tau, tau_org) (12, N), force (3, S', N), lam), with
-    S' = S plus the ceiling rows."""
+    S' = S plus the ceiling rows; on the graph path (`free_dynamics`) tau
+    and tau_org are the graph's, overwritten by the next substep."""
     c = consts_of(mc)
-    p = pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+    p = free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
     f, tau_j, tau_org = p["f"], p["tau_j"], p["tau_org"]
     u_new, force, lam = jacobi_solve(
         p["phi"], p["n"], p["r"], p["lever"], f, p["u_free"], prm["friction"], cfg.dt,
@@ -697,19 +783,11 @@ def batch_inputs(cfg, grid, s, control, params):
     with trace.span("engine.terrain_window"):
         patch = terrain_window(grid, s.base_pos[:, :2].contiguous(), cfg.patch_size,
                                params.hf_weights)
-    vals_T = patch.values.permute(1, 2, 0)                  # (P, P, N)
-
-    def sampler(x, y):
-        return patch_sample_hn(vals_T, patch.x0, patch.y0, grid.origin, grid.hscale, x, y)
-
+    sampler = PatchSampler(patch.values.permute(1, 2, 0), patch.x0, patch.y0, grid.origin,
+                           grid.hscale)
     ceil_sampler = None
     if patch.ceil is not None:
-        ceil_T = patch.ceil.permute(1, 2, 0)
-
-        def ceil_sampler(x, y):
-            return patch_sample_ceiling(ceil_T, patch.x0, patch.y0, grid.origin,
-                                        grid.hscale, x, y)
-
+        ceil_sampler = sampler._replace(values_T=patch.ceil.permute(1, 2, 0), ceiling=True)
     return sd, (control.target.T, control.kp.T, control.kd.T, prm, sampler,
                 ceil_sampler), patch
 
@@ -736,4 +814,6 @@ def control_step_batched(mc: ModelConsts, cfg, grid, s, control, params):
     body_forces = bf_all[-1].permute(2, 0, 1)
     max_body_forces = torch.stack(bf_all).abs().amax(dim=0).permute(2, 0, 1)
     state = EnvState(base_pos=sd.bp.T, base_quat=sd.bq.T, dof_pos=sd.q.T, u=sd.u.T)
-    return state, (taus[0].T, taus[1].T), body_forces, max_body_forces, terrain_patch
+    # cloned: on the graph path they are the graph's, and the env keeps tau_org a step
+    taus = (taus[0].T.clone(), taus[1].T.clone())
+    return state, taus, body_forces, max_body_forces, terrain_patch

@@ -25,7 +25,9 @@ bbc_play: `play_bbc.build`, trot at 1.0 m/s with bbc_final), warms up, then:
      open on the host over each (`idle_by_span`), and the host µs per
      device op launched inside each `engine` span (`issue_us_per_op`);
      then the ops of one more slice with tracing off;
-  4. the host µs of one empty span, on and off.
+  4. the host µs of one empty span, on and off;
+  5. how often the free dynamics' CUDA graph was captured and replayed over
+     the whole run (soa.FREE_DYNAMICS: one capture, one replay a substep).
 
 Prints one JSON line.
 """
@@ -44,6 +46,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from agility_tpu_torch import trace
+from agility_tpu_torch.physics import soa
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
 PLAY_CHECKPOINT = os.path.join(ROOT, "logs", "bbc_r5", "bbc_final.msgpack")
@@ -500,8 +503,10 @@ def main(argv=None):
         out = run_train(cli, run_argv + ["--seed", str(a.seed)], learn_kw, dev, a.rounds,
                         a.slice_steps)
     cuda = device.type == "cuda"
+    graphs = soa.FREE_DYNAMICS
     res = dict(run=a.run, device=label if cuda else device_label(device),
-               torch=torch.__version__, argv=run_argv, span_us=span_us(cuda), **out)
+               torch=torch.__version__, argv=run_argv, span_us=span_us(cuda),
+               free_dynamics_graph=dict(captures=graphs.captures, replays=graphs.replays), **out)
     print(json.dumps(res))
 
 

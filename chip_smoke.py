@@ -82,7 +82,9 @@ Phases (any failure exits nonzero and prints no result line):
   7. BBC slice — play_bbc at 4096 envs on the rough-terrain Go2LocomotionCfg with
                logs/bbc_r5/bbc_15k.msgpack for 40 control steps (trot, vx 1.0)
                and --gait_bands on the port's assets/gait_bands_real.json; K1
-               launches = substeps run, K2 launches = control steps + 1, every
+               launches = substeps run, K2 launches = control steps + 1, the
+               free dynamics' CUDA graph (soa.FREE_DYNAMICS) captured once and
+               replayed once a substep, every
                state finite, median base height over the terrain in [0.15,
                0.45] m; the gait report (duty, stride_hz, diag_sync over the
                run, against the real-clip trot bands) printed with
@@ -1313,12 +1315,17 @@ def phase_slice(num_envs, steps):
     from agility_tpu_torch.cli import play_bbc
     from agility_tpu_torch.physics import heightfield as hf
 
+    from agility_tpu_torch.physics import soa
+
     args = play_bbc.get_args(["--device", "cuda", "--num_envs", str(num_envs),
                               "--checkpoint", CHECKPOINT, "--mode", "trot", "--vx", "1.0",
                               "--steps", str(steps), "--gait_bands", GAIT_BANDS])
     _counts_zero()
+    graphs = soa.FREE_DYNAMICS
+    before = graphs.captures, graphs.replays
     res = play_bbc.run(args)
     launches = _counts()
+    graph_counts = dict(captures=graphs.captures - before[0], replays=graphs.replays - before[1])
     gait_reading(res, num_envs, steps)
     s = res["state"]
     finite = all(bool(torch.isfinite(t).all()) for t in (*s.sim, s.obs_buf))
@@ -1329,7 +1336,8 @@ def phase_slice(num_envs, steps):
     root_h = pos[:, 2] - hf.sample_height(res["env"].grid, pos[:, 0], pos[:, 1])
     med_h, med_z = float(root_h.median()), float(pos[:, 2].median())
     print(f"BBC slice: {num_envs} envs x {steps} control steps, launches {launches} "
-          f"(substeps run {res['substeps']}), all states finite {finite}, "
+          f"(substeps run {res['substeps']}), free dynamics graph {graph_counts}, "
+          f"all states finite {finite}, "
           f"median base height over terrain {med_h:.4f} m (world z {med_z:.4f} m), "
           f"{res['env_steps_per_s']:.1f} env-steps/s on {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -1337,6 +1345,9 @@ def phase_slice(num_envs, steps):
         raise SystemExit("BBC slice: the K1 launch count differs from the substeps run")
     if launches["terrain_window"] != steps + 1:
         raise SystemExit("BBC slice: the K2 launch count differs from the control steps run")
+    if graph_counts != dict(captures=1, replays=res["substeps"]):
+        raise SystemExit("BBC slice: the free dynamics were not captured once and replayed "
+                         "once a substep")
     if not finite:
         raise SystemExit("BBC slice: non-finite state")
     if not 0.15 <= med_h <= 0.45:

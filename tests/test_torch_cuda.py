@@ -6,6 +6,7 @@ conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -13,6 +14,7 @@ from agility_tpu_torch.kernels import contact_lcp as k1
 from agility_tpu_torch.kernels import scandots as k3
 from agility_tpu_torch.kernels import terrain_window as k2
 from agility_tpu_torch.physics import engine as teng
+from agility_tpu_torch.physics import heightfield as thf
 from agility_tpu_torch.physics import soa as tsoa
 from torch_cases import (N, S, batch_case, contact_case, k1_args, layered_case, model_consts,
                          random_contact_problem, window_case)
@@ -79,6 +81,103 @@ def test_control_step_on_card_matches_cpu(card):
     for k, atol in dict(base_pos=5e-4, base_quat=5e-4, dof_pos=1e-3, u=3e-2).items():
         torch.testing.assert_close(getattr(g, k).cpu(), getattr(c, k), rtol=0, atol=atol)
     assert float(cbf.abs().max()) > 1.0                   # contacts were active
+
+
+def _graph_grid(ceiling):
+    """A rough 10 x 10 m grid on the card; with `ceiling` a 0.45 m roof over
+    its middle 4 x 4 m."""
+    rng = np.random.default_rng(7)
+    ceil = None
+    if ceiling:
+        ceil = np.full((200, 200), thf.NO_CEILING, np.float32)
+        ceil[60:140, 60:140] = 0.45
+    return thf.from_numpy(0.03 * rng.normal(size=(200, 200)), 0.05, (-5.0, -5.0), "cuda",
+                          ceiling=ceil)
+
+
+def _graph_batch(n, seed):
+    """A new (EnvState, Control, EnvParams) of n envs low over _graph_grid,
+    every randomisation on, each tensor new."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+    dof0 = model_consts().default_dof_pos.numpy()
+    q = rng.normal(0, 0.1, (n, 4)) + np.array([0, 0, 0, 1.0])
+    s = teng.EnvState(f32(np.c_[rng.uniform(-3, 3, (n, 2)), np.full(n, 0.3)]),
+                      f32(q / np.linalg.norm(q, axis=-1, keepdims=True)),
+                      f32(dof0 + rng.uniform(-0.3, 0.3, (n, 12))), f32(rng.normal(0, 0.3, (n, 18))))
+    ctl = teng.Control(f32(dof0 + rng.uniform(-0.2, 0.2, (n, 12))), f32(np.full((n, 12), 40.0)),
+                       f32(np.full((n, 12), 1.0)))
+    prm = teng.EnvParams(f32(rng.uniform(0.6, 1.2, n)), f32(rng.uniform(0.9, 1.1, (n, 12))),
+                         f32(rng.uniform(0.9, 1.1, (n, 12))), f32(rng.uniform(-1.0, 2.0, n)),
+                         f32(rng.normal(0, 0.02, (n, 3))))
+    return s, ctl, prm
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _tensors(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, P, ceiling", [(4096, 24, False), (6144, 32, True)])
+def test_free_dynamics_graph_is_bit_equal(card, n, P, ceiling):
+    """The free dynamics replayed from a CUDA graph against eager pre_contact
+    on the same inputs, bit for bit, at the BBC's shape (N 4096, S 24, P 24)
+    and the TSC's with the ceiling rows (N 6144, S 28, P 32): 3 control
+    steps of 4 substeps, each step with new state, params and K2 window
+    tensors (a stale pointer would show), the state carried by the contact
+    solve and integration.  One capture, 12 replays; a closure sampler on
+    the card runs eagerly."""
+    mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(patch_size=P), _graph_grid(ceiling)
+    graphs = tsoa.FREE_DYNAMICS
+    before = graphs.captures, graphs.replays
+    for step in range(3):
+        s, ctl, prm = _graph_batch(n, seed=step)
+        sd, (target, kp, kd, p, smp, csmp), _ = tsoa.batch_inputs(cfg, grid, s, ctl, prm)
+        assert (csmp is not None) == ceiling
+        for _ in range(cfg.decimation):
+            got = tsoa.free_dynamics(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+            want = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+            assert want["phi"].shape[0] == (28 if ceiling else 24)
+            for a, b in zip(_tensors(got), _tensors(want), strict=True):
+                assert torch.equal(a, b)
+            u_new, _, _ = tsoa.jacobi_solve(
+                got["phi"], got["n"], got["r"], got["lever"], got["f"], got["u_free"],
+                p["friction"], cfg.dt, iters=cfg.jacobi_iters, relax=cfg.jacobi_relax,
+                **tsoa.contact_kwargs(cfg))
+            sd = tsoa.integrate(mc.soa, cfg, sd, got["f"], u_new)
+    torch.cuda.synchronize()
+    assert (graphs.captures - before[0], graphs.replays - before[1]) == (1, 12)
+    closure = lambda f: None if f is None else (lambda x, y: f(x, y))
+    eager = tsoa.free_dynamics(mc, cfg, sd, target, kp, kd, p, closure(smp), closure(csmp))
+    assert graphs.replays - before[1] == 12
+    want = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+    for a, b in zip(_tensors(eager), _tensors(want), strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_control_step_keeps_its_torques(card):
+    """tau and tau_org returned by a control step on the graph path are the
+    step's own: unchanged after the next step, which replays the graph that
+    computed them."""
+    mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(), _graph_grid(False)
+    before = tsoa.FREE_DYNAMICS.replays
+    s, ctl, prm = _graph_batch(4096, seed=0)
+    _, taus, _, _, _ = tsoa.control_step_batched(mc, cfg, grid, s, ctl, prm)
+    kept = [t.clone() for t in taus]
+    s2, ctl2, prm2 = _graph_batch(4096, seed=1)
+    _, taus2, _, _, _ = tsoa.control_step_batched(mc, cfg, grid, s2, ctl2, prm2)
+    torch.cuda.synchronize()
+    assert tsoa.FREE_DYNAMICS.replays - before == 2 * cfg.decimation
+    assert not torch.equal(taus2[1], kept[1])
+    for t, k in zip(taus, kept):
+        assert torch.equal(t, k)
 
 
 @pytest.mark.cuda
