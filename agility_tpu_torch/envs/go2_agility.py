@@ -209,6 +209,11 @@ class Go2AgilityEnv:
                               + m.match_bodies("thigh") + m.match_bodies("calf"))
         self.termination_idx = (m.match_bodies("base") + m.match_bodies("hip")
                                 + m.match_bodies("thigh"))
+        # the same on the device: a list indexes a CUDA tensor through a copy
+        # from the host, which waits for the device to finish the queued work
+        self.feet_ix, self.penalized_ix, self.termination_ix = (
+            torch.tensor(ix, device=dev) for ix in
+            (self.feet_idx, self.penalized_idx, self.termination_idx))
         hip = np.ones(12)
         hip[[0, 3, 6, 9]] = cfg.control.hip_scale_reduction
         self.hip_scale = f32s(hip)
@@ -434,7 +439,7 @@ class Go2AgilityEnv:
         # viscous damping and hard stops where a plank end meets the ground
         feet_pos = soa.body_positions(self.mc, sim, self.feet_idx)          # (N, 4, 3)
         lever = lever_arm(self.seesaw_pose[:, None, :], feet_pos[:, :, 0], feet_pos[:, :, 1])
-        fz = body_forces[:, self.feet_idx, 2]                               # upward on robot
+        fz = body_forces[:, self.feet_ix, 2]                                # upward on robot
         plank_tau = -torch.sum(lever * fz, dim=1)                           # reaction torque
         th_d = state.seesaw_theta_d + self.dt * (
             plank_tau - self.seesaw_damping * state.seesaw_theta_d) / obst_gen.SEESAW_INERTIA
@@ -449,7 +454,7 @@ class Go2AgilityEnv:
         base_lin_vel = qm.quat_rotate_inverse(bq, sim.u[:, :3])
         base_ang_vel = qm.quat_rotate_inverse(bq, sim.u[:, 3:6])
         roll, pitch, yaw = qm.euler_from_quat(bq)
-        contact = torch.linalg.vector_norm(body_forces[:, self.feet_idx], dim=-1) > 2.0
+        contact = torch.linalg.vector_norm(body_forces[:, self.feet_ix], dim=-1) > 2.0
         contact_filt = contact | state.last_contacts
 
         # --- goal machinery, on last step's gathered goals ---
@@ -471,7 +476,7 @@ class Go2AgilityEnv:
         cur_obst_type = self._obstacle_type(cur_goal_idx)
 
         # --- termination ---
-        term_force = torch.linalg.vector_norm(body_forces[:, self.termination_idx], dim=-1)
+        term_force = torch.linalg.vector_norm(body_forces[:, self.termination_ix], dim=-1)
         reset_buf = torch.any(term_force > 1.0, dim=1)
         reach_goal_cutoff = cur_goal_idx >= (self.n_goals_total - self.last_goal_repeat)
         time_out = (episode_length > self.max_episode_length) | reach_goal_cutoff
@@ -677,7 +682,7 @@ class Go2AgilityEnv:
         terms["tracking_goal_vel"] = torch.minimum(proj, tgt) / (tgt + 1e-5)
         terms["tracking_yaw"] = torch.exp(-torch.abs(qm.wrap_to_pi(q["target_yaw"] - q["yaw"])))
         terms["reach_goal"] = q["reached"].float()
-        pen = torch.linalg.vector_norm(q["body_forces"][:, self.penalized_idx], dim=-1)
+        pen = torch.linalg.vector_norm(q["body_forces"][:, self.penalized_ix], dim=-1)
         terms["collision"] = torch.sum((pen > 0.1).float(), -1)
         hl = q["hl_hist"]
         terms["action_hl_rate"] = torch.linalg.vector_norm(hl[:, -2] - hl[:, -1], dim=-1)

@@ -156,6 +156,11 @@ class Go2LocomotionEnv:
         self.penalized_idx = m.match_bodies("thigh") + m.match_bodies("calf")
         self.termination_idx = m.match_bodies("base") + m.match_bodies("hip")
         self.hip_dofs = [0, 3, 6, 9]
+        # the same on the device: a list indexes a CUDA tensor through a copy
+        # from the host, which waits for the device to finish the queued work
+        self.feet_ix, self.penalized_ix, self.termination_ix, self.hip_ix = (
+            torch.tensor(ix, device=self.device) for ix in
+            (self.feet_idx, self.penalized_idx, self.termination_idx, self.hip_dofs))
         mid = (m.dof_limit_lower + m.dof_limit_upper) / 2
         r = m.dof_limit_upper - m.dof_limit_lower
         soft = cfg.rewards.soft_dof_pos_limit
@@ -290,7 +295,7 @@ class Go2LocomotionEnv:
         bq = sim.base_quat
         base_lin_vel = qm.quat_rotate_inverse(bq, sim.u[:, :3])
         base_ang_vel = qm.quat_rotate_inverse(bq, sim.u[:, 3:6])
-        contact = torch.linalg.vector_norm(body_forces[:, self.feet_idx], dim=-1) > 2.0
+        contact = torch.linalg.vector_norm(body_forces[:, self.feet_ix], dim=-1) > 2.0
         contact_filt = contact | state.last_contacts
 
         resample = (episode_length % self.resample_steps) == 0
@@ -301,7 +306,7 @@ class Go2LocomotionEnv:
             sim = sim._replace(u=torch.cat([push, sim.u[:, 2:]], dim=1))
             base_lin_vel = qm.quat_rotate_inverse(bq, sim.u[:, :3])
 
-        term_force = torch.linalg.vector_norm(body_forces[:, self.termination_idx], dim=-1)
+        term_force = torch.linalg.vector_norm(body_forces[:, self.termination_ix], dim=-1)
         reset_buf = torch.any(term_force > 1.0, dim=1)
         time_out = (episode_length > self.max_episode_length) | (sim.base_pos[:, 2] < -6.0)
         reset_buf = reset_buf | time_out
@@ -489,7 +494,7 @@ class Go2LocomotionEnv:
         terms["torques"] = torch.sum(sq(q["torques_org"]), -1)
         terms["delta_torques"] = torch.sum(sq(q["torques_org"] - q["last_torques_org"]), -1)
         terms["dof_acc"] = torch.sum(sq((q["last_dof_vel"] - q["dof_vel"]) / self.dt), -1)
-        pen_force = torch.linalg.vector_norm(q["body_forces"][:, self.penalized_idx], dim=-1)
+        pen_force = torch.linalg.vector_norm(q["body_forces"][:, self.penalized_ix], dim=-1)
         terms["collision"] = torch.sum((pen_force > 0.1).to(cmd.dtype), -1)
         terms["action_rate"] = torch.sum(sq(q["last_actions"] - q["actions"]), -1)
         out_low = -torch.clamp(q["dof_pos"] - self.soft_dof_lower, max=0.0)
@@ -498,7 +503,7 @@ class Go2LocomotionEnv:
         terms["dof_vel_limits"] = torch.sum(torch.clamp(
             torch.abs(q["dof_vel"]) - self.dof_vel_limit * cfg.soft_dof_vel_limit, 0.0, 1.0), -1)
         default = self.mc.default_dof_pos
-        terms["hip_pos"] = torch.sum(sq(q["dof_pos"][:, self.hip_dofs] - default[self.hip_dofs]), -1)
+        terms["hip_pos"] = torch.sum(sq(q["dof_pos"][:, self.hip_ix] - default[self.hip_ix]), -1)
         terms["dof_error"] = torch.sum(sq(q["dof_pos"] - default), -1)
         terms["torque_limits"] = torch.sum(torch.clamp(
             torch.abs(q["torques_org"]) - self.dof_effort_limit * cfg.soft_torque_limit,

@@ -10,6 +10,15 @@ replays.
 inputs, made with each input's shape, strides and dtype, and writes the
 same output tensors at every replay: an output is valid until the next call
 with its key, so a caller that keeps one clones it.
+
+A graph may also read another graph's tensors in place ("borrowed"): two
+graphs on one stream with an eager launch between them, the second reading
+the first's outputs and static inputs by address, with no copy.  The
+contract: the second graph's key includes the first's, so one entry of the
+second always reads the same entry of the first; both entries have the
+same owner, so they are dropped together; and the lender's tensors hold
+this call's values when the borrower replays, which stream order gives
+when the borrower is called after the lender's replay and before its next.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ class _Graph:
     """One captured graph, its static inputs and the outputs it writes."""
 
     def __init__(self, fn: Callable, args: Sequence[torch.Tensor],
-                 held: Sequence[torch.Tensor]):
+                 held: Sequence[torch.Tensor], borrowed):
+        self.borrowed = borrowed
         self.args = [_static(t) for t in args]
         self.held = [_static(t) for t in held]
         self.held_src = [None] * len(held)
@@ -66,9 +76,12 @@ class GraphCache:
     those of `held` only when they are other objects than the last call's
     (inputs that stay the same over several calls, such as a control step's
     terrain window read by each of its substeps; they are kept referenced,
-    so an object seen again is the same tensor).  The first call with a key
-    warms `fn` up once and captures it (`captures`); every call then
-    replays (`replays`)."""
+    so an object seen again is the same tensor).  `borrowed` is any object
+    holding tensors that `fn` reads in place through its closure, never
+    copied: another graph's outputs (see the module's docstring).  The
+    entry keeps it referenced, and every call with the key must pass the
+    same object.  The first call with a key warms `fn` up once and captures
+    it (`captures`); every call then replays (`replays`)."""
 
     def __init__(self):
         self.captures = 0
@@ -76,14 +89,17 @@ class GraphCache:
         self._graphs = {}
 
     def __call__(self, key: Hashable, owner, fn: Callable, args: Sequence[torch.Tensor],
-                 held: Sequence[torch.Tensor] = ()):
+                 held: Sequence[torch.Tensor] = (), borrowed=None):
         with torch.cuda.device(args[0].device):
             g = self._graphs.get(key)
             if g is None:
-                g = self._graphs[key] = _Graph(fn, args, held)
+                g = self._graphs[key] = _Graph(fn, args, held, borrowed)
                 weakref.finalize(owner, self._graphs.pop, key, None)
                 self.captures += 1
             else:
+                if borrowed is not g.borrowed:
+                    raise ValueError("GraphCache: the borrowed tensors differ from those the "
+                                     "graph was captured with; the key must fix them")
                 g.load(args, held)
             g.graph.replay()
         self.replays += 1

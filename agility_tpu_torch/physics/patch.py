@@ -35,7 +35,8 @@ class Patch(NamedTuple):
 
 def grid_index(grid: HeightGrid, x, y):
     """Fractional grid coordinates ((x - ox) / hscale, (y - oy) / hscale)."""
-    hs = torch.tensor(grid.hscale, dtype=x.dtype, device=x.device)
+    # a fill on the device, not a copy from the host, which would wait for it
+    hs = torch.full((), grid.hscale, dtype=x.dtype, device=x.device)
     return (x - grid.origin[0]) / hs, (y - grid.origin[1]) / hs
 
 

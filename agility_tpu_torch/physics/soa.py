@@ -19,10 +19,13 @@ Same math as the JAX module:
   - Terrain: the per-env window is gathered once per control step by kernel
     K2 (kernels/terrain_window.py), with the movable layers folded in.
 
-Run op by op in eager torch the free dynamics (`pre_contact`) are ~13,500
-small kernel launches a substep.  On a CUDA device the substep replays them
-from a CUDA graph (`free_dynamics`, physics/graphs.py), captured once for
-each structure; the contact solve, K1 and the integration stay eager.
+Run op by op in eager torch a substep is ~15,000 small kernel launches.  On
+a CUDA device the substep replays them from two CUDA graphs
+(physics/graphs.py), each captured once for each structure, with K1 an
+eager launch between them: `free_dynamics` (FREE_DYNAMICS), the free
+dynamics (`pre_contact`) and K1's inputs (`contact_problem`); then
+`contact_lcp` (K1); then CONTACT_APPLY, the impulses applied (`apply_JT`,
+`solve`) and `integrate`, reading the first graph's tensors in place.
 """
 from __future__ import annotations
 
@@ -544,6 +547,13 @@ def jacobi_solve(phi, n, r, lever, f, u_free, mu, dt, *, iters, relax, baumgarte
                            slop=slop, max_depen_vel=max_depen_vel,
                            restitution=restitution, lam0=lam0)
     lam = contact_lcp(*args, iters=iters, relax=relax, lam_max=lam_max)
+    return apply_impulses(lam, r, lever, f, u_free, dt)
+
+
+def apply_impulses(lam, r, lever, f, u_free, dt):
+    """K1's impulses lam (N, 3S) onto the free velocity: (u_new 18-list,
+    force (3, S, N), lam (3, S, N))."""
+    S, N = r[0].shape
     lam = lam.view(N, S, 3).permute(2, 1, 0)                # (3, S, N)
     w = solve(f, apply_JT(lam, r, lever))
     return [u_free[i] + w[i] for i in range(18)], lam / dt, lam
@@ -654,12 +664,13 @@ def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler
 
 
 FREE_DYNAMICS = graphs.GraphCache()     # its `captures` and `replays` count the graph path
+CONTACT_APPLY = graphs.GraphCache()     # likewise, the graph after K1
 
 
 def _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler):
-    """pre_contact's tensors: (those of the substep, the samplers' over the
-    control step)."""
-    args = [*sd, target, kp, kd, prm["kp_scale"], prm["kd_scale"]]
+    """The first graph's tensors: (those of the substep, the samplers' over
+    the control step)."""
+    args = [*sd, target, kp, kd, prm["kp_scale"], prm["kd_scale"], prm["friction"]]
     if prm.get("added_mass") is not None:
         args.append(prm["added_mass"])
     if prm.get("com_shift") is not None:
@@ -669,42 +680,61 @@ def _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler):
     return args, held
 
 
+def graphed(sd, target, kp, kd, prm, sampler, ceil_sampler=None) -> bool:
+    """Whether a substep on these inputs replays its graphs: every tensor on
+    a CUDA device and the samplers PatchSamplers (a plain closure, as
+    tools/bench_substep.py passes, runs eagerly)."""
+    if not all(smp is None or isinstance(smp, PatchSampler) for smp in (sampler, ceil_sampler)):
+        return False
+    args, held = _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler)
+    return all(t.is_cuda for t in args + held)
+
+
 def free_dynamics_key(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
                       ceil_sampler=None):
-    """What a graph of pre_contact fixes: the model (its constants are read
-    by address), the values folded in as Python numbers (dt, gravity, the
-    samplers' grid origin and spacing), the matmul precision of the
-    samplers' contractions, which optional inputs are given, and each
-    input's shape, dtype and device (N, P, the ceiling rows)."""
+    """What a graph of pre_contact and contact_problem fixes: the model (its
+    constants are read by address), the values folded in as Python numbers
+    (dt, gravity, the contact settings, the samplers' grid origin and
+    spacing), the matmul precision, which optional inputs are given, and
+    each input's shape, dtype and device (N, P, the ceiling rows,
+    friction's shape).  A warm start's lam0 is not among them: it goes to
+    K1 outside the graph."""
     args, held = _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler)
-    return (id(mc), cfg.dt, tuple(cfg.gravity), torch.backends.cuda.matmul.allow_tf32,
+    return (id(mc), cfg.dt, tuple(cfg.gravity), tuple(contact_kwargs(cfg).items()),
+            torch.backends.cuda.matmul.allow_tf32,
             prm.get("added_mass") is not None, prm.get("com_shift") is not None,
             tuple((smp.origin, smp.hscale, smp.ceiling) if smp is not None else None
                   for smp in (sampler, ceil_sampler)),
             tuple((t.shape, t.dtype, t.device) for t in args + held))
 
 
-def free_dynamics(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
-                  ceil_sampler=None):
-    """pre_contact's results.  Where every input is on a CUDA device and the
-    samplers are PatchSamplers they come from a CUDA graph of pre_contact,
-    one for each `free_dynamics_key` (FREE_DYNAMICS): the inputs are copied
-    into the graph's own, the samplers' only when they are other tensors
-    than the last call's, and the graph replayed.  The results are then the
-    graph's tensors, which the next call with the key overwrites.  Anything
-    else runs pre_contact eagerly."""
-    if not all(smp is None or isinstance(smp, PatchSampler) for smp in (sampler, ceil_sampler)):
-        return pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+def contact_apply_key(free_key, cfg):
+    """What the graph after K1 fixes besides the first graph's key, whose
+    tensors it reads: whether the integration enforces the joint limits."""
+    return free_key, cfg.enforce_joint_limits
+
+
+def _pre_solve(pre, mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler):
+    """`pre` (pre_contact or the function its span wraps), then K1's inputs
+    from zero impulses (`problem`) and the state read (`state`), in one
+    dict."""
+    p = pre(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+    p["problem"] = contact_problem(p["phi"], p["n"], p["r"], p["lever"], p["f"], p["u_free"],
+                                   prm["friction"], cfg.dt, **contact_kwargs(cfg))
+    p["state"] = sd
+    return p
+
+
+def _replay_free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler):
+    """The first graph's results and key (inputs as `graphed` accepts)."""
     args, held = _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler)
-    if not all(t.is_cuda for t in args + held):
-        return pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
     has_mass, has_com = prm.get("added_mass") is not None, prm.get("com_shift") is not None
 
     def body(args, held):
         a, h = iter(args), iter(held)
         sd_ = SoAState(*(next(a) for _ in range(4)))
         target_, kp_, kd_ = next(a), next(a), next(a)
-        prm_ = dict(kp_scale=next(a), kd_scale=next(a))
+        prm_ = dict(kp_scale=next(a), kd_scale=next(a), friction=next(a))
         if has_mass:
             prm_["added_mass"] = next(a)
         if has_com:
@@ -712,11 +742,43 @@ def free_dynamics(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampl
         smp_ = [None if smp is None else smp._replace(values_T=next(h), x0=next(h), y0=next(h))
                 for smp in (sampler, ceil_sampler)]
         # the function pre_contact's span wraps: nothing traced inside a graph
-        return pre_contact.__wrapped__(mc, cfg, sd_, target_, kp_, kd_, prm_, *smp_)
+        return _pre_solve(pre_contact.__wrapped__, mc, cfg, sd_, target_, kp_, kd_, prm_, *smp_)
 
     with trace.span("engine.free_dynamics"):
         key = free_dynamics_key(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
-        return FREE_DYNAMICS(key, mc, body, args, held)
+        return FREE_DYNAMICS(key, mc, body, args, held), key
+
+
+def free_dynamics(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
+                  ceil_sampler=None):
+    """pre_contact's results, with K1's inputs from zero impulses under
+    `problem` (contact_problem's tuple) and the state under `state`.  Where `graphed` they come from a
+    CUDA graph, one for each `free_dynamics_key` (FREE_DYNAMICS): the
+    inputs are copied into the graph's own, the samplers' only when they are
+    other tensors than the last call's, and the graph replayed.  The
+    results are then the graph's tensors, which the next call with the key
+    overwrites (`state` is the graph's copy of `sd`).  Anything else runs
+    eagerly."""
+    if not graphed(sd, target, kp, kd, prm, sampler, ceil_sampler):
+        return _pre_solve(pre_contact, mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+    return _replay_free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)[0]
+
+
+def contact_apply(mc: ModelConsts, cfg, free_key, p, lam):
+    """K1's impulses lam (N, 3S) applied and the substep integrated, replayed
+    from the graph after K1 (CONTACT_APPLY, one for each
+    `contact_apply_key`): lam is copied in, and `p`, the first graph's
+    results under `free_key`, read in place.  Returns (SoAState, force
+    (3, S, N)), the graph's tensors, which the next call with the key
+    overwrites."""
+    c = consts_of(mc)
+
+    def body(args, held):
+        u_new, force, _ = apply_impulses(args[0], p["r"], p["lever"], p["f"], p["u_free"],
+                                         cfg.dt)
+        return integrate(c, cfg, p["state"], p["f"], u_new), force
+
+    return CONTACT_APPLY(contact_apply_key(free_key, cfg), mc, body, [lam], borrowed=p)
 
 
 def contact_kwargs(cfg):
@@ -735,18 +797,35 @@ def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
     Vec3 of (N,)); sampler(x, y) -> (h (S, N), n Vec3 of (S, N));
     ceil_sampler likewise for the ceiling, or None.
     Returns (SoAState, (tau, tau_org) (12, N), force (3, S', N), lam), with
-    S' = S plus the ceiling rows; on the graph path (`free_dynamics`) tau
-    and tau_org are the graph's, overwritten by the next substep."""
+    S' = S plus the ceiling rows.  Where `graphed`: the first graph, K1
+    (`contact_lcp`, eager, handed lam0 as it is), the graph after K1; the
+    state, tau, tau_org and force are then the graphs' tensors, overwritten
+    by the next substep, and lam is K1's own.  Otherwise pre_contact,
+    jacobi_solve and integrate, eagerly."""
     c = consts_of(mc)
-    p = free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
-    f, tau_j, tau_org = p["f"], p["tau_j"], p["tau_org"]
-    u_new, force, lam = jacobi_solve(
-        p["phi"], p["n"], p["r"], p["lever"], f, p["u_free"], prm["friction"], cfg.dt,
-        iters=cfg.jacobi_iters, relax=cfg.jacobi_relax, lam0=lam0, **contact_kwargs(cfg))
+    if not graphed(sd, target, kp, kd, prm, sampler, ceil_sampler):
+        p = pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+        f, tau_j, tau_org = p["f"], p["tau_j"], p["tau_org"]
+        u_new, force, lam = jacobi_solve(
+            p["phi"], p["n"], p["r"], p["lever"], f, p["u_free"], prm["friction"], cfg.dt,
+            iters=cfg.jacobi_iters, relax=cfg.jacobi_relax, lam0=lam0, **contact_kwargs(cfg))
+        with trace.span("engine.integrate"):
+            sd2 = integrate(c, cfg, sd, f, u_new)
+        return sd2, (tau_j, tau_org), force, lam
 
+    p, key = _replay_free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+    problem = p["problem"]
+    if lam0 is not None:
+        # a warm start (the previous substep's K1 output) outside the graph:
+        # one graph serves every substep
+        problem = problem[:7] + (_env_major(lam0),)
+    with trace.span("engine.contact"):
+        # the module's name, looked up at each call: outside any graph
+        lam = contact_lcp(*problem, iters=cfg.jacobi_iters, relax=cfg.jacobi_relax)
     with trace.span("engine.integrate"):
-        sd2 = integrate(c, cfg, sd, f, u_new)
-    return sd2, (tau_j, tau_org), force, lam
+        sd2, force = contact_apply(mc, cfg, key, p, lam)
+    S, N = p["phi"].shape
+    return sd2, (p["tau_j"], p["tau_org"]), force, lam.view(N, S, 3).permute(2, 1, 0)
 
 
 def integrate(c: SoAConsts, cfg, sd: SoAState, f, u_new) -> SoAState:
@@ -813,7 +892,9 @@ def control_step_batched(mc: ModelConsts, cfg, grid, s, control, params):
         bf_all.append(torch.einsum("bs,asn->ban", body_mat, force))     # (B, 3, N)
     body_forces = bf_all[-1].permute(2, 0, 1)
     max_body_forces = torch.stack(bf_all).abs().amax(dim=0).permute(2, 0, 1)
-    state = EnvState(base_pos=sd.bp.T, base_quat=sd.bq.T, dof_pos=sd.q.T, u=sd.u.T)
-    # cloned: on the graph path they are the graph's, and the env keeps tau_org a step
+    # cloned: on the graph path they are the graphs', which the next step
+    # overwrites, and the env, the trainers and the harness keep them
+    state = EnvState(base_pos=sd.bp.T.clone(), base_quat=sd.bq.T.clone(),
+                     dof_pos=sd.q.T.clone(), u=sd.u.T.clone())
     taus = (taus[0].T.clone(), taus[1].T.clone())
     return state, taus, body_forces, max_body_forces, terrain_patch

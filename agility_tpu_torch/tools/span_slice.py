@@ -26,8 +26,9 @@ bbc_play: `play_bbc.build`, trot at 1.0 m/s with bbc_final), warms up, then:
      device op launched inside each `engine` span (`issue_us_per_op`);
      then the ops of one more slice with tracing off;
   4. the host µs of one empty span, on and off;
-  5. how often the free dynamics' CUDA graph was captured and replayed over
-     the whole run (soa.FREE_DYNAMICS: one capture, one replay a substep).
+  5. how often the SoA substep's two CUDA graphs were captured and replayed
+     over the whole run (soa.FREE_DYNAMICS, soa.CONTACT_APPLY: one capture
+     each, one replay a substep).
 
 Prints one JSON line.
 """
@@ -503,10 +504,11 @@ def main(argv=None):
         out = run_train(cli, run_argv + ["--seed", str(a.seed)], learn_kw, dev, a.rounds,
                         a.slice_steps)
     cuda = device.type == "cuda"
-    graphs = soa.FREE_DYNAMICS
+    counts = lambda g: dict(captures=g.captures, replays=g.replays)
     res = dict(run=a.run, device=label if cuda else device_label(device),
                torch=torch.__version__, argv=run_argv, span_us=span_us(cuda),
-               free_dynamics_graph=dict(captures=graphs.captures, replays=graphs.replays), **out)
+               free_dynamics_graph=counts(soa.FREE_DYNAMICS),
+               contact_apply_graph=counts(soa.CONTACT_APPLY), **out)
     print(json.dumps(res))
 
 

@@ -83,8 +83,9 @@ Phases (any failure exits nonzero and prints no result line):
                logs/bbc_r5/bbc_15k.msgpack for 40 control steps (trot, vx 1.0)
                and --gait_bands on the port's assets/gait_bands_real.json; K1
                launches = substeps run, K2 launches = control steps + 1, the
-               free dynamics' CUDA graph (soa.FREE_DYNAMICS) captured once and
-               replayed once a substep, every
+               free dynamics' CUDA graph (soa.FREE_DYNAMICS) and the one after K1
+               (soa.CONTACT_APPLY) each captured once and replayed once a
+               substep, every
                state finite, median base height over the terrain in [0.15,
                0.45] m; the gait report (duty, stride_hz, diag_sync over the
                run, against the real-clip trot bands) printed with
@@ -1321,11 +1322,12 @@ def phase_slice(num_envs, steps):
                               "--checkpoint", CHECKPOINT, "--mode", "trot", "--vx", "1.0",
                               "--steps", str(steps), "--gait_bands", GAIT_BANDS])
     _counts_zero()
-    graphs = soa.FREE_DYNAMICS
-    before = graphs.captures, graphs.replays
+    caches = dict(free_dynamics=soa.FREE_DYNAMICS, contact_apply=soa.CONTACT_APPLY)
+    before = {k: (g.captures, g.replays) for k, g in caches.items()}
     res = play_bbc.run(args)
     launches = _counts()
-    graph_counts = dict(captures=graphs.captures - before[0], replays=graphs.replays - before[1])
+    graph_counts = {k: dict(captures=g.captures - before[k][0], replays=g.replays - before[k][1])
+                    for k, g in caches.items()}
     gait_reading(res, num_envs, steps)
     s = res["state"]
     finite = all(bool(torch.isfinite(t).all()) for t in (*s.sim, s.obs_buf))
@@ -1336,7 +1338,7 @@ def phase_slice(num_envs, steps):
     root_h = pos[:, 2] - hf.sample_height(res["env"].grid, pos[:, 0], pos[:, 1])
     med_h, med_z = float(root_h.median()), float(pos[:, 2].median())
     print(f"BBC slice: {num_envs} envs x {steps} control steps, launches {launches} "
-          f"(substeps run {res['substeps']}), free dynamics graph {graph_counts}, "
+          f"(substeps run {res['substeps']}), graphs {graph_counts}, "
           f"all states finite {finite}, "
           f"median base height over terrain {med_h:.4f} m (world z {med_z:.4f} m), "
           f"{res['env_steps_per_s']:.1f} env-steps/s on {torch.cuda.get_device_name(0)}",
@@ -1345,9 +1347,10 @@ def phase_slice(num_envs, steps):
         raise SystemExit("BBC slice: the K1 launch count differs from the substeps run")
     if launches["terrain_window"] != steps + 1:
         raise SystemExit("BBC slice: the K2 launch count differs from the control steps run")
-    if graph_counts != dict(captures=1, replays=res["substeps"]):
-        raise SystemExit("BBC slice: the free dynamics were not captured once and replayed "
-                         "once a substep")
+    for k, counts in graph_counts.items():
+        if counts != dict(captures=1, replays=res["substeps"]):
+            raise SystemExit(f"BBC slice: the {k} graph was not captured once and replayed "
+                             "once a substep")
     if not finite:
         raise SystemExit("BBC slice: non-finite state")
     if not 0.15 <= med_h <= 0.45:

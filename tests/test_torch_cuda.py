@@ -123,16 +123,30 @@ def _tensors(x):
     return []
 
 
+def _pre_solve(mc, cfg, sd, target, kp, kd, p, smp, csmp):
+    """Eager pre_contact and K1's inputs, as soa.free_dynamics returns them."""
+    want = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+    want["problem"] = tsoa.contact_problem(
+        want["phi"], want["n"], want["r"], want["lever"], want["f"], want["u_free"],
+        p["friction"], cfg.dt, **tsoa.contact_kwargs(cfg))
+    want["state"] = sd
+    return want
+
+
+def _graph_counts():
+    return [(g.captures, g.replays) for g in (tsoa.FREE_DYNAMICS, tsoa.CONTACT_APPLY)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, P, ceiling", [(4096, 24, False), (6144, 32, True)])
 def test_free_dynamics_graph_is_bit_equal(card, n, P, ceiling):
-    """The free dynamics replayed from a CUDA graph against eager pre_contact
-    on the same inputs, bit for bit, at the BBC's shape (N 4096, S 24, P 24)
-    and the TSC's with the ceiling rows (N 6144, S 28, P 32): 3 control
-    steps of 4 substeps, each step with new state, params and K2 window
-    tensors (a stale pointer would show), the state carried by the contact
-    solve and integration.  One capture, 12 replays; a closure sampler on
-    the card runs eagerly."""
+    """The first graph (free dynamics and K1's inputs) replayed against eager
+    pre_contact and contact_problem on the same inputs, bit for bit, at the
+    BBC's shape (N 4096, S 24, P 24) and the TSC's with the ceiling rows
+    (N 6144, S 28, P 32): 3 control steps of 4 substeps, each step with new
+    state, params and K2 window tensors (a stale pointer would show), the
+    state carried by K1, the apply and the integration, eagerly.  One
+    capture, 12 replays; a closure sampler on the card runs eagerly."""
     mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(patch_size=P), _graph_grid(ceiling)
     graphs = tsoa.FREE_DYNAMICS
     before = graphs.captures, graphs.replays
@@ -142,41 +156,119 @@ def test_free_dynamics_graph_is_bit_equal(card, n, P, ceiling):
         assert (csmp is not None) == ceiling
         for _ in range(cfg.decimation):
             got = tsoa.free_dynamics(mc, cfg, sd, target, kp, kd, p, smp, csmp)
-            want = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+            want = _pre_solve(mc, cfg, sd, target, kp, kd, p, smp, csmp)
             assert want["phi"].shape[0] == (28 if ceiling else 24)
             for a, b in zip(_tensors(got), _tensors(want), strict=True):
                 assert torch.equal(a, b)
-            u_new, _, _ = tsoa.jacobi_solve(
-                got["phi"], got["n"], got["r"], got["lever"], got["f"], got["u_free"],
-                p["friction"], cfg.dt, iters=cfg.jacobi_iters, relax=cfg.jacobi_relax,
-                **tsoa.contact_kwargs(cfg))
+            lam = tsoa.contact_lcp(*got["problem"], iters=cfg.jacobi_iters,
+                                   relax=cfg.jacobi_relax)
+            u_new, _, _ = tsoa.apply_impulses(lam, got["r"], got["lever"], got["f"],
+                                              got["u_free"], cfg.dt)
             sd = tsoa.integrate(mc.soa, cfg, sd, got["f"], u_new)
     torch.cuda.synchronize()
     assert (graphs.captures - before[0], graphs.replays - before[1]) == (1, 12)
     closure = lambda f: None if f is None else (lambda x, y: f(x, y))
     eager = tsoa.free_dynamics(mc, cfg, sd, target, kp, kd, p, closure(smp), closure(csmp))
     assert graphs.replays - before[1] == 12
-    want = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+    want = _pre_solve(mc, cfg, sd, target, kp, kd, p, smp, csmp)
     for a, b in zip(_tensors(eager), _tensors(want), strict=True):
         assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False])
+@pytest.mark.parametrize("n, P, ceiling", [(4096, 24, False), (6144, 32, True)])
+def test_substep_graphs_are_bit_equal(card, monkeypatch, n, P, ceiling, warm):
+    """The substep on the graph path (first graph, K1 eager, the graph after
+    K1) against the eager chain pre_contact -> jacobi_solve -> integrate on
+    the same inputs, bit for bit: state, tau, tau_org, force and lam, at the
+    BBC's shape and the TSC's with the ceiling rows, over 3 control steps of
+    4 substeps, each step with new state, params and K2 window tensors, the
+    state carried by the graphs' outputs, and with `warm` each substep after
+    the first warm-started from the last one's lam (the tasks' sim
+    warm_start).  Each cache takes one capture and 12 replays, warm or cold;
+    K1 is called through `soa.contact_lcp` (the name the benchmark's
+    K1Shapes wraps) once a substep, at (N, S')."""
+    mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(patch_size=P), _graph_grid(ceiling)
+    rows = 28 if ceiling else 24
+    shapes = []
+    orig = tsoa.contact_lcp
+
+    def counted(G, *a, **k):
+        shapes.append((G.shape[0], G.shape[1] // 3))
+        return orig(G, *a, **k)
+
+    monkeypatch.setattr(tsoa, "contact_lcp", counted)
+    before = _graph_counts()
+    graphed_calls = 0
+    for step in range(3):
+        s, ctl, prm = _graph_batch(n, seed=step)
+        sd, (target, kp, kd, p, smp, csmp), _ = tsoa.batch_inputs(cfg, grid, s, ctl, prm)
+        lam0 = None
+        for _ in range(cfg.decimation):
+            # eager first: the graphed substep overwrites sd, the previous one's output
+            e = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+            u_new, force, lam = tsoa.jacobi_solve(
+                e["phi"], e["n"], e["r"], e["lever"], e["f"], e["u_free"], p["friction"],
+                cfg.dt, iters=cfg.jacobi_iters, relax=cfg.jacobi_relax, lam0=lam0,
+                **tsoa.contact_kwargs(cfg))
+            want = (tsoa.integrate(mc.soa, cfg, sd, e["f"], u_new),
+                    (e["tau_j"], e["tau_org"]), force, lam)
+            k = len(shapes)
+            got = tsoa.substep(mc, cfg, sd, target, kp, kd, p, smp, csmp, lam0=lam0)
+            graphed_calls += len(shapes) - k
+            assert shapes[-1] == (n, rows)
+            for a, b in zip(_tensors(got), _tensors(want), strict=True):
+                assert torch.equal(a, b)
+            sd = got[0]
+            if warm:
+                lam0 = got[3]
+    torch.cuda.synchronize()
+    assert graphed_calls == 12
+    assert shapes == [(n, rows)] * 24                     # 12 eager, 12 graphed
+    after = _graph_counts()
+    for (c0, r0), (c1, r1) in zip(before, after):
+        assert (c1 - c0, r1 - r0) == (1, 12)
+    assert float(want[2].abs().max()) > 1.0               # contacts carry impulse
+
+
+@pytest.mark.cuda
 def test_control_step_keeps_its_torques(card):
     """tau and tau_org returned by a control step on the graph path are the
-    step's own: unchanged after the next step, which replays the graph that
+    step's own: unchanged after the next step, which replays the graphs that
     computed them."""
     mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(), _graph_grid(False)
-    before = tsoa.FREE_DYNAMICS.replays
+    before = _graph_counts()
     s, ctl, prm = _graph_batch(4096, seed=0)
     _, taus, _, _, _ = tsoa.control_step_batched(mc, cfg, grid, s, ctl, prm)
     kept = [t.clone() for t in taus]
     s2, ctl2, prm2 = _graph_batch(4096, seed=1)
     _, taus2, _, _, _ = tsoa.control_step_batched(mc, cfg, grid, s2, ctl2, prm2)
     torch.cuda.synchronize()
-    assert tsoa.FREE_DYNAMICS.replays - before == 2 * cfg.decimation
+    for (_, r0), (_, r1) in zip(before, _graph_counts()):
+        assert r1 - r0 == 2 * cfg.decimation
     assert not torch.equal(taus2[1], kept[1])
     for t, k in zip(taus, kept):
+        assert torch.equal(t, k)
+
+
+@pytest.mark.cuda
+def test_control_step_keeps_its_state_and_forces(card):
+    """The state, body_forces and max_body_forces returned by a control step
+    on the graph path are the step's own: unchanged after the next step,
+    whose graphs overwrite the outputs they were computed from."""
+    mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(), _graph_grid(False)
+    s, ctl, prm = _graph_batch(4096, seed=0)
+    state, _, bf, mbf, _ = tsoa.control_step_batched(mc, cfg, grid, s, ctl, prm)
+    outs = [*state, bf, mbf]
+    kept = [t.clone() for t in outs]
+    s2, ctl2, prm2 = _graph_batch(4096, seed=1)
+    state2, _, bf2, _, _ = tsoa.control_step_batched(mc, cfg, grid, s2, ctl2, prm2)
+    torch.cuda.synchronize()
+    assert not torch.equal(state2.base_pos, kept[0])
+    assert not torch.equal(bf2, kept[4])
+    assert float(kept[5].abs().max()) > 1.0               # contacts were active
+    for t, k in zip(outs, kept):
         assert torch.equal(t, k)
 
 
