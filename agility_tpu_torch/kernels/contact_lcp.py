@@ -20,10 +20,11 @@ Returns lam (N, 3S).
 `contact_lcp` dispatches on the tensors' device alone: CPU tensors take
 `contact_lcp_reference`; CUDA tensors launch the kernel, or raise.
 
-K1 has two callers: the SoA substep (physics/soa.py:jacobi_solve), and the
-per-env engine's world-frame solve through `jacobi_solve_batch` below (the
-counterpart of agility_tpu/physics/pallas_contact.py:jacobi_solve_batch),
-which builds the same inputs from the fast path's dense Jacobians.
+K1 has two callers: the SoA substep (physics/soa.py:substep, between its
+two stages), and the per-env engine's world-frame solve through
+`jacobi_solve_batch` below (the counterpart of
+agility_tpu/physics/pallas_contact.py:jacobi_solve_batch), which builds the
+same inputs from the fast path's dense Jacobians.
 
 The kernel runs persistent blocks that stream each env's G through a
 two-stage ring of asynchronous copies in shared memory into registers (8

@@ -19,13 +19,14 @@ Same math as the JAX module:
   - Terrain: the per-env window is gathered once per control step by kernel
     K2 (kernels/terrain_window.py), with the movable layers folded in.
 
-Run op by op in eager torch a substep is ~15,000 small kernel launches.  On
-a CUDA device the substep replays them from two CUDA graphs
-(physics/graphs.py), each captured once for each structure, with K1 an
-eager launch between them: `free_dynamics` (FREE_DYNAMICS), the free
-dynamics (`pre_contact`) and K1's inputs (`contact_problem`); then
-`contact_lcp` (K1); then CONTACT_APPLY, the impulses applied (`apply_JT`,
-`solve`) and `integrate`, reading the first graph's tensors in place.
+A substep is three stages on every device: stage A (`stage_a`), the free
+dynamics (`pre_contact`) and K1's inputs (`contact_problem`); then K1
+(`contact_lcp`); then stage B (`stage_b`), the impulses applied
+(`apply_impulses`) and `integrate`.  Run op by op in eager torch a substep
+is ~15,000 small kernel launches; on a CUDA device the two stages replay
+from CUDA graphs (physics/graphs.py, FREE_DYNAMICS and CONTACT_APPLY), each
+captured once for each structure, with K1 an eager launch between them and
+stage B reading stage A's tensors in place.
 """
 from __future__ import annotations
 
@@ -536,12 +537,13 @@ def contact_problem(phi, n, r, lever, f, u_free, mu, dt, *, baumgarte, slop,
             lam0_e)
 
 
-@trace.spanned("engine.contact")
 def jacobi_solve(phi, n, r, lever, f, u_free, mu, dt, *, iters, relax, baumgarte,
                  slop, max_depen_vel, restitution, lam_max=25.0, lam0=None):
     """Projected block-Jacobi contact solve through K1: same fixed point and
     returns as the JAX soa.jacobi_solve — (u_new 18-list, force (3, S, N),
-    lam (3, S, N)).  With `lam0` the sweeps start from project(lam0)."""
+    lam (3, S, N)).  With `lam0` the sweeps start from project(lam0).  The
+    substep runs the same three steps (contact_problem, K1, apply_impulses)
+    across its stages."""
     S, N = phi.shape
     args = contact_problem(phi, n, r, lever, f, u_free, mu, dt, baumgarte=baumgarte,
                            slop=slop, max_depen_vel=max_depen_vel,
@@ -600,7 +602,7 @@ def patch_sample_ceiling(ceil_vals_T, patch_x0, patch_y0, origin, hscale, x, y):
 class PatchSampler(NamedTuple):
     """`sampler(x, y)` -> (h (S, N), n Vec3 of (S, N)) over a per-env terrain
     window: `patch_sample_hn`, or with `ceiling` `patch_sample_ceiling`.  It
-    holds its tensors, so that `free_dynamics` can copy them into a graph."""
+    holds its tensors, so that the substep's graph can copy them in."""
     values_T: torch.Tensor      # (P, P, N)
     x0: torch.Tensor            # (N,) the window's first cell on the grid
     y0: torch.Tensor
@@ -625,7 +627,6 @@ class SoAState(NamedTuple):
     u: torch.Tensor     # (18, N)
 
 
-@trace.spanned("engine.free_dynamics")
 def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
                 ceil_sampler=None):
     """A substep up to the contact solve: PD torques, the factored mass
@@ -663,122 +664,28 @@ def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler
                 tau_org=tau_org)
 
 
-FREE_DYNAMICS = graphs.GraphCache()     # its `captures` and `replays` count the graph path
-CONTACT_APPLY = graphs.GraphCache()     # likewise, the graph after K1
+FREE_DYNAMICS = graphs.GraphCache()     # stage A's graphs: `captures`, `replays`
+CONTACT_APPLY = graphs.GraphCache()     # stage B's
 
 
-def _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler):
-    """The first graph's tensors: (those of the substep, the samplers' over
-    the control step)."""
-    args = [*sd, target, kp, kd, prm["kp_scale"], prm["kd_scale"], prm["friction"]]
-    if prm.get("added_mass") is not None:
-        args.append(prm["added_mass"])
-    if prm.get("com_shift") is not None:
-        args += prm["com_shift"]
-    held = [t for smp in (sampler, ceil_sampler) if smp is not None
-            for t in (smp.values_T, smp.x0, smp.y0)]
-    return args, held
-
-
-def graphed(sd, target, kp, kd, prm, sampler, ceil_sampler=None) -> bool:
-    """Whether a substep on these inputs replays its graphs: every tensor on
-    a CUDA device and the samplers PatchSamplers (a plain closure, as
-    tools/bench_substep.py passes, runs eagerly)."""
-    if not all(smp is None or isinstance(smp, PatchSampler) for smp in (sampler, ceil_sampler)):
-        return False
-    args, held = _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler)
-    return all(t.is_cuda for t in args + held)
-
-
-def free_dynamics_key(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
-                      ceil_sampler=None):
-    """What a graph of pre_contact and contact_problem fixes: the model (its
-    constants are read by address), the values folded in as Python numbers
-    (dt, gravity, the contact settings, the samplers' grid origin and
-    spacing), the matmul precision, which optional inputs are given, and
-    each input's shape, dtype and device (N, P, the ceiling rows,
-    friction's shape).  A warm start's lam0 is not among them: it goes to
-    K1 outside the graph."""
-    args, held = _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler)
-    return (id(mc), cfg.dt, tuple(cfg.gravity), tuple(contact_kwargs(cfg).items()),
-            torch.backends.cuda.matmul.allow_tf32,
-            prm.get("added_mass") is not None, prm.get("com_shift") is not None,
-            tuple((smp.origin, smp.hscale, smp.ceiling) if smp is not None else None
-                  for smp in (sampler, ceil_sampler)),
-            tuple((t.shape, t.dtype, t.device) for t in args + held))
-
-
-def contact_apply_key(free_key, cfg):
-    """What the graph after K1 fixes besides the first graph's key, whose
-    tensors it reads: whether the integration enforces the joint limits."""
-    return free_key, cfg.enforce_joint_limits
-
-
-def _pre_solve(pre, mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler):
-    """`pre` (pre_contact or the function its span wraps), then K1's inputs
-    from zero impulses (`problem`) and the state read (`state`), in one
-    dict."""
-    p = pre(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+def stage_a(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
+            ceil_sampler=None):
+    """The substep up to K1: pre_contact's results, with K1's inputs from
+    zero impulses under `problem` (contact_problem's tuple) and the state
+    read under `state`."""
+    p = pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
     p["problem"] = contact_problem(p["phi"], p["n"], p["r"], p["lever"], p["f"], p["u_free"],
                                    prm["friction"], cfg.dt, **contact_kwargs(cfg))
     p["state"] = sd
     return p
 
 
-def _replay_free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler):
-    """The first graph's results and key (inputs as `graphed` accepts)."""
-    args, held = _graph_inputs(sd, target, kp, kd, prm, sampler, ceil_sampler)
-    has_mass, has_com = prm.get("added_mass") is not None, prm.get("com_shift") is not None
-
-    def body(args, held):
-        a, h = iter(args), iter(held)
-        sd_ = SoAState(*(next(a) for _ in range(4)))
-        target_, kp_, kd_ = next(a), next(a), next(a)
-        prm_ = dict(kp_scale=next(a), kd_scale=next(a), friction=next(a))
-        if has_mass:
-            prm_["added_mass"] = next(a)
-        if has_com:
-            prm_["com_shift"] = (next(a), next(a), next(a))
-        smp_ = [None if smp is None else smp._replace(values_T=next(h), x0=next(h), y0=next(h))
-                for smp in (sampler, ceil_sampler)]
-        # the function pre_contact's span wraps: nothing traced inside a graph
-        return _pre_solve(pre_contact.__wrapped__, mc, cfg, sd_, target_, kp_, kd_, prm_, *smp_)
-
-    with trace.span("engine.free_dynamics"):
-        key = free_dynamics_key(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
-        return FREE_DYNAMICS(key, mc, body, args, held), key
-
-
-def free_dynamics(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
-                  ceil_sampler=None):
-    """pre_contact's results, with K1's inputs from zero impulses under
-    `problem` (contact_problem's tuple) and the state under `state`.  Where `graphed` they come from a
-    CUDA graph, one for each `free_dynamics_key` (FREE_DYNAMICS): the
-    inputs are copied into the graph's own, the samplers' only when they are
-    other tensors than the last call's, and the graph replayed.  The
-    results are then the graph's tensors, which the next call with the key
-    overwrites (`state` is the graph's copy of `sd`).  Anything else runs
-    eagerly."""
-    if not graphed(sd, target, kp, kd, prm, sampler, ceil_sampler):
-        return _pre_solve(pre_contact, mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
-    return _replay_free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)[0]
-
-
-def contact_apply(mc: ModelConsts, cfg, free_key, p, lam):
-    """K1's impulses lam (N, 3S) applied and the substep integrated, replayed
-    from the graph after K1 (CONTACT_APPLY, one for each
-    `contact_apply_key`): lam is copied in, and `p`, the first graph's
-    results under `free_key`, read in place.  Returns (SoAState, force
-    (3, S, N)), the graph's tensors, which the next call with the key
-    overwrites."""
-    c = consts_of(mc)
-
-    def body(args, held):
-        u_new, force, _ = apply_impulses(args[0], p["r"], p["lever"], p["f"], p["u_free"],
-                                         cfg.dt)
-        return integrate(c, cfg, p["state"], p["f"], u_new), force
-
-    return CONTACT_APPLY(contact_apply_key(free_key, cfg), mc, body, [lam], borrowed=p)
+def stage_b(mc: ModelConsts, cfg, p, lam):
+    """The substep after K1: its impulses lam (N, 3S) applied to stage A's
+    results `p` and the substep integrated.  Returns (SoAState, force
+    (3, S, N))."""
+    u_new, force, _ = apply_impulses(lam, p["r"], p["lever"], p["f"], p["u_free"], cfg.dt)
+    return integrate(consts_of(mc), cfg, p["state"], p["f"], u_new), force
 
 
 def contact_kwargs(cfg):
@@ -790,30 +697,24 @@ def contact_kwargs(cfg):
 @trace.spanned("engine.substep")
 def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
             ceil_sampler=None, lam0=None):
-    """One physics substep in env-minor layout.
+    """One physics substep in env-minor layout: stage A through
+    FREE_DYNAMICS, K1 (`contact_lcp`, eager, from lam0 where given), stage B
+    through CONTACT_APPLY, reading stage A's results in place.
 
     target/kp/kd: (12, N); prm: dict of env-minor randomization tensors
     (kp_scale/kd_scale (12, N), friction (N,), added_mass (N,), com_shift
-    Vec3 of (N,)); sampler(x, y) -> (h (S, N), n Vec3 of (S, N));
-    ceil_sampler likewise for the ceiling, or None.
+    Vec3 of (N,)); sampler: the PatchSampler of the terrain; ceil_sampler
+    that of the ceiling, or None.
     Returns (SoAState, (tau, tau_org) (12, N), force (3, S', N), lam), with
-    S' = S plus the ceiling rows.  Where `graphed`: the first graph, K1
-    (`contact_lcp`, eager, handed lam0 as it is), the graph after K1; the
-    state, tau, tau_org and force are then the graphs' tensors, overwritten
-    by the next substep, and lam is K1's own.  Otherwise pre_contact,
-    jacobi_solve and integrate, eagerly."""
-    c = consts_of(mc)
-    if not graphed(sd, target, kp, kd, prm, sampler, ceil_sampler):
-        p = pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
-        f, tau_j, tau_org = p["f"], p["tau_j"], p["tau_org"]
-        u_new, force, lam = jacobi_solve(
-            p["phi"], p["n"], p["r"], p["lever"], f, p["u_free"], prm["friction"], cfg.dt,
-            iters=cfg.jacobi_iters, relax=cfg.jacobi_relax, lam0=lam0, **contact_kwargs(cfg))
-        with trace.span("engine.integrate"):
-            sd2 = integrate(c, cfg, sd, f, u_new)
-        return sd2, (tau_j, tau_org), force, lam
-
-    p, key = _replay_free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+    S' = S plus the ceiling rows.  On a CUDA device the stages replay from
+    CUDA graphs (physics/graphs.py), both under one key of the inputs'
+    structure, the model, `cfg` and the matmul precision: the state, tau,
+    tau_org and force are then the graphs' tensors, overwritten by the next
+    substep, and lam is K1's own."""
+    inputs, samplers = (sd, target, kp, kd, prm), (sampler, ceil_sampler)
+    with trace.span("engine.free_dynamics"):
+        key = graphs.key((inputs, samplers), id(mc), cfg, torch.backends.cuda.matmul.allow_tf32)
+        p = FREE_DYNAMICS(key, mc, lambda a, s: stage_a(mc, cfg, *a, *s), inputs, samplers)
     problem = p["problem"]
     if lam0 is not None:
         # a warm start (the previous substep's K1 output) outside the graph:
@@ -823,7 +724,7 @@ def substep(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
         # the module's name, looked up at each call: outside any graph
         lam = contact_lcp(*problem, iters=cfg.jacobi_iters, relax=cfg.jacobi_relax)
     with trace.span("engine.integrate"):
-        sd2, force = contact_apply(mc, cfg, key, p, lam)
+        sd2, force = CONTACT_APPLY(key, mc, lambda a, _: stage_b(mc, cfg, p, a), lam, borrowed=p)
     S, N = p["phi"].shape
     return sd2, (p["tau_j"], p["tau_org"]), force, lam.view(N, S, 3).permute(2, 1, 0)
 

@@ -10,9 +10,11 @@ that consecutive rows differ by one piece:
                                  build, one bmm), K1 with 0 sweeps, apply_JT
   + 5 Jacobi sweeps              K1 with 5 sweeps
   + 10 Jacobi sweeps             K1 with 10 sweeps
-  soa.substep                    the engine's substep itself (5 sweeps, relax
-                                 0.7, lam0=None): adds the velocity clamps,
-                                 limit_impulses and the joint clamps
+  soa.substep                    the engine's substep as the program runs it
+                                 (5 sweeps, relax 0.7, lam0=None), on a card
+                                 replayed from its two CUDA graphs around K1:
+                                 adds the velocity clamps, limit_impulses and
+                                 the joint clamps
 
     python -m agility_tpu_torch.tools.bench_substep            # BENCH_ENVS=6144, one card
     BENCH_ENVS=8 BENCH_STEPS=2 python -m agility_tpu_torch.tools.bench_substep --device cpu
@@ -54,7 +56,7 @@ PIECES = (("fk+geometry", 0, None), ("free dynamics", 1, 0), ("detection samplin
 
 def setup(N, device):
     """The JAX tool's state, gains and terrain window: (mc, sd0, inputs),
-    inputs = (target, kp, kd, prm, sampler)."""
+    inputs = (target, kp, kd, prm, sampler), sampler a soa.PatchSampler."""
     from agility_tpu_torch.core.urdf import build_go2_model
     from agility_tpu_torch.kernels.terrain_window import terrain_window
     from agility_tpu_torch.physics import heightfield as hf
@@ -78,11 +80,8 @@ def setup(N, device):
     # the window, extracted once outside the loop (bench_stages_tsc and the
     # env ablation attribute the control step's extraction)
     patch = terrain_window(grid, bp[:2].T.contiguous(), 32, None)
-    vals_T = patch.values.permute(1, 2, 0)
-
-    def sampler(x, y):
-        return soa.patch_sample_hn(vals_T, patch.x0, patch.y0, grid.origin, grid.hscale, x, y)
-
+    sampler = soa.PatchSampler(patch.values.permute(1, 2, 0), patch.x0, patch.y0, grid.origin,
+                               grid.hscale)
     return mc, sd0, (target, kp, kd, prm, sampler)
 
 

@@ -4,7 +4,7 @@ path: the SoA substep (`sim.solver="jacobi"`), the per-env engine with
 "pgs", fast=False)`).
 
 On the card it counts device kernels (copies and fills included), as
-profile_slice.py and chip_smoke.py count them; on the CPU, the leaf aten
+chip_smoke.py counts them; on the CPU, the leaf aten
 operations that compute (views and metadata operations left out), a count
 of what the host issues and not a device metric:
 

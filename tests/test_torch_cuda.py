@@ -14,6 +14,7 @@ from agility_tpu_torch.kernels import contact_lcp as k1
 from agility_tpu_torch.kernels import scandots as k3
 from agility_tpu_torch.kernels import terrain_window as k2
 from agility_tpu_torch.physics import engine as teng
+from agility_tpu_torch.physics import graphs
 from agility_tpu_torch.physics import heightfield as thf
 from agility_tpu_torch.physics import soa as tsoa
 from torch_cases import (N, S, batch_case, contact_case, k1_args, layered_case, model_consts,
@@ -124,7 +125,7 @@ def _tensors(x):
 
 
 def _pre_solve(mc, cfg, sd, target, kp, kd, p, smp, csmp):
-    """Eager pre_contact and K1's inputs, as soa.free_dynamics returns them."""
+    """Stage A called directly: pre_contact and K1's inputs."""
     want = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
     want["problem"] = tsoa.contact_problem(
         want["phi"], want["n"], want["r"], want["lever"], want["f"], want["u_free"],
@@ -140,50 +141,46 @@ def _graph_counts():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, P, ceiling", [(4096, 24, False), (6144, 32, True)])
 def test_free_dynamics_graph_is_bit_equal(card, n, P, ceiling):
-    """The first graph (free dynamics and K1's inputs) replayed against eager
-    pre_contact and contact_problem on the same inputs, bit for bit, at the
-    BBC's shape (N 4096, S 24, P 24) and the TSC's with the ceiling rows
-    (N 6144, S 28, P 32): 3 control steps of 4 substeps, each step with new
-    state, params and K2 window tensors (a stale pointer would show), the
-    state carried by K1, the apply and the integration, eagerly.  One
-    capture, 12 replays; a closure sampler on the card runs eagerly."""
+    """Stage A's graph (free dynamics and K1's inputs, FREE_DYNAMICS)
+    replayed against pre_contact and contact_problem called directly on the
+    same inputs, bit for bit, at the BBC's shape (N 4096, S 24, P 24) and
+    the TSC's with the ceiling rows (N 6144, S 28, P 32): 3 control steps
+    of 4 substeps, each step with new state, params and K2 window tensors
+    (a stale pointer would show), the state carried by K1, the apply and
+    the integration, called directly.  One capture, 12 replays."""
     mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(patch_size=P), _graph_grid(ceiling)
-    graphs = tsoa.FREE_DYNAMICS
-    before = graphs.captures, graphs.replays
+    cache = tsoa.FREE_DYNAMICS
+    before = cache.captures, cache.replays
     for step in range(3):
         s, ctl, prm = _graph_batch(n, seed=step)
         sd, (target, kp, kd, p, smp, csmp), _ = tsoa.batch_inputs(cfg, grid, s, ctl, prm)
         assert (csmp is not None) == ceiling
         for _ in range(cfg.decimation):
-            got = tsoa.free_dynamics(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+            inputs, samplers = (sd, target, kp, kd, p), (smp, csmp)
+            got = cache(graphs.key((inputs, samplers), id(mc), cfg), mc,
+                        lambda a, h: tsoa.stage_a(mc, cfg, *a, *h), inputs, samplers)
             want = _pre_solve(mc, cfg, sd, target, kp, kd, p, smp, csmp)
             assert want["phi"].shape[0] == (28 if ceiling else 24)
             for a, b in zip(_tensors(got), _tensors(want), strict=True):
                 assert torch.equal(a, b)
-            lam = tsoa.contact_lcp(*got["problem"], iters=cfg.jacobi_iters,
+            lam = tsoa.contact_lcp(*want["problem"], iters=cfg.jacobi_iters,
                                    relax=cfg.jacobi_relax)
-            u_new, _, _ = tsoa.apply_impulses(lam, got["r"], got["lever"], got["f"],
-                                              got["u_free"], cfg.dt)
-            sd = tsoa.integrate(mc.soa, cfg, sd, got["f"], u_new)
+            u_new, _, _ = tsoa.apply_impulses(lam, want["r"], want["lever"], want["f"],
+                                              want["u_free"], cfg.dt)
+            sd = tsoa.integrate(mc.soa, cfg, sd, want["f"], u_new)
     torch.cuda.synchronize()
-    assert (graphs.captures - before[0], graphs.replays - before[1]) == (1, 12)
-    closure = lambda f: None if f is None else (lambda x, y: f(x, y))
-    eager = tsoa.free_dynamics(mc, cfg, sd, target, kp, kd, p, closure(smp), closure(csmp))
-    assert graphs.replays - before[1] == 12
-    want = _pre_solve(mc, cfg, sd, target, kp, kd, p, smp, csmp)
-    for a, b in zip(_tensors(eager), _tensors(want), strict=True):
-        assert torch.equal(a, b)
+    assert (cache.captures - before[0], cache.replays - before[1]) == (1, 12)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("warm", [True, False])
 @pytest.mark.parametrize("n, P, ceiling", [(4096, 24, False), (6144, 32, True)])
 def test_substep_graphs_are_bit_equal(card, monkeypatch, n, P, ceiling, warm):
-    """The substep on the graph path (first graph, K1 eager, the graph after
-    K1) against the eager chain pre_contact -> jacobi_solve -> integrate on
-    the same inputs, bit for bit: state, tau, tau_org, force and lam, at the
-    BBC's shape and the TSC's with the ceiling rows, over 3 control steps of
-    4 substeps, each step with new state, params and K2 window tensors, the
+    """The substep on the card (stage A's graph, K1 eager, stage B's graph)
+    against its stage functions called directly, pre_contact ->
+    jacobi_solve -> integrate, on the same inputs, bit for bit: state, tau,
+    tau_org, force and lam, at the BBC's shape and the TSC's with the
+    ceiling rows, over 3 control steps of 4 substeps, each step with new state, params and K2 window tensors, the
     state carried by the graphs' outputs, and with `warm` each substep after
     the first warm-started from the last one's lam (the tasks' sim
     warm_start).  Each cache takes one capture and 12 replays, warm or cold;
@@ -206,7 +203,7 @@ def test_substep_graphs_are_bit_equal(card, monkeypatch, n, P, ceiling, warm):
         sd, (target, kp, kd, p, smp, csmp), _ = tsoa.batch_inputs(cfg, grid, s, ctl, prm)
         lam0 = None
         for _ in range(cfg.decimation):
-            # eager first: the graphed substep overwrites sd, the previous one's output
+            # the direct calls first: the substep overwrites sd, the previous one's output
             e = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
             u_new, force, lam = tsoa.jacobi_solve(
                 e["phi"], e["n"], e["r"], e["lever"], e["f"], e["u_free"], p["friction"],

@@ -1,7 +1,7 @@
 """The port runs where jax, flax and optax are not installed, and without
 the JAX package: a fresh interpreter with jax, flax, optax and agility_tpu
 blocked imports every module of agility_tpu_torch, chip_smoke.py, multi_card.py,
-kernel_bench.py, window_dma_sweep.py and profile_slice.py (the layer tools of
+kernel_bench.py and window_dma_sweep.py (the layer tools of
 agility_tpu_torch/tools/ among them), then takes two env steps of 2 envs on
 the CPU and one on the per-env engine (sim.solver="pgs") and runs the
 window A/B (tools/bench_windows) on a small world; a second one plays two hierarchical TSC steps of 2 envs on a
@@ -36,7 +36,7 @@ SCRIPT = textwrap.dedent("""
     import agility_tpu_torch
     for m in pkgutil.walk_packages(agility_tpu_torch.__path__, "agility_tpu_torch."):
         importlib.import_module(m.name)
-    import chip_smoke, kernel_bench, multi_card, profile_slice, window_dma_sweep
+    import chip_smoke, kernel_bench, multi_card, window_dma_sweep
     from agility_tpu_torch.envs.config import Go2LocomotionCfg, EnvCfg
     from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
     from agility_tpu_torch.learn.policy import build_policy
