@@ -41,6 +41,7 @@ from agility_tpu_torch.envs.go2_locomotion import Go2LocomotionEnv
 from agility_tpu_torch.io import checkpoint as ckpt
 from agility_tpu_torch.io import gait
 from agility_tpu_torch.learn.policy import build_policy
+from agility_tpu_torch.kernels.free_dynamics import free_dynamics
 from agility_tpu_torch.physics.soa import CONTACT_APPLY, FREE_DYNAMICS
 
 WARMUP = 10  # leading control steps left out of the env-steps/s figure
@@ -213,13 +214,16 @@ def run(args, overrides=None) -> dict:
 def print_spans() -> None:
     """Each span's calls, ms (CUDA-event time where recorded, else host) and
     ms a call, in the order they first closed; then how often the SoA
-    substep's two CUDA graphs were captured and replayed."""
+    substep's two CUDA graphs were captured and replayed, and how often the
+    free-dynamics kernel was called (two a capture of the first graph, none
+    a replay)."""
     for name, st in trace.summary().items():
         ms = st["device_ms"] if st["device_ms"] is not None else st["host_ms"]
         print(f"span {name:<22} {st['count']:7d} calls {ms:12.3f} ms "
               f"{ms / st['count']:10.4f} ms a call  (in {st['parent']})")
     print(f"free dynamics graph: {FREE_DYNAMICS.captures} captures, "
-          f"{FREE_DYNAMICS.replays} replays")
+          f"{FREE_DYNAMICS.replays} replays; free dynamics kernel: "
+          f"{free_dynamics.launches} calls")
     print(f"contact apply graph: {CONTACT_APPLY.captures} captures, "
           f"{CONTACT_APPLY.replays} replays")
 

@@ -21,6 +21,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# a source's own flags: the free-dynamics kernel rounds every product and
+# sum apart, as PyTorch's elementwise kernels do, so that it gives plain
+# torch's bits (csrc/free_dynamics.cu)
+SOURCE_FLAGS = {"free_dynamics": ["--fmad=false"]}
 
 _LIBS = {}
 ptxas_info = {}        # name (and defines) -> nvcc's resource report, for libraries
@@ -42,7 +46,7 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     if key in _LIBS:
         return _LIBS[key]
     src = os.path.join(CSRC, f"{name}.cu")
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, []) + [f"-D{d}" for d in defines]
     h = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:

@@ -20,13 +20,13 @@ Same math as the JAX module:
     K2 (kernels/terrain_window.py), with the movable layers folded in.
 
 A substep is three stages on every device: stage A (`stage_a`), the free
-dynamics (`pre_contact`) and K1's inputs (`contact_problem`); then K1
-(`contact_lcp`); then stage B (`stage_b`), the impulses applied
-(`apply_impulses`) and `integrate`.  Run op by op in eager torch a substep
-is ~15,000 small kernel launches; on a CUDA device the two stages replay
-from CUDA graphs (physics/graphs.py, FREE_DYNAMICS and CONTACT_APPLY), each
-captured once for each structure, with K1 an eager launch between them and
-stage B reading stage A's tensors in place.
+dynamics (`pre_contact`, through kernels/free_dynamics.py: on a CUDA device
+one hand-written kernel, on the CPU pre_contact itself) and K1's inputs
+(`contact_problem`); then K1 (`contact_lcp`); then stage B (`stage_b`), the
+impulses applied (`apply_impulses`) and `integrate`.  On a CUDA device the
+two stages replay from CUDA graphs (physics/graphs.py, FREE_DYNAMICS and
+CONTACT_APPLY), each captured once for each structure, with K1 an eager
+launch between them and stage B reading stage A's tensors in place.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ import torch
 
 from agility_tpu_torch import trace
 from agility_tpu_torch.kernels.contact_lcp import contact_lcp
+from agility_tpu_torch.kernels.free_dynamics import free_dynamics
 from agility_tpu_torch.kernels.terrain_window import terrain_window
 from agility_tpu_torch.physics import graphs
 from agility_tpu_torch.physics.constants import ModelConsts, SoAConsts, consts_of
@@ -633,7 +634,9 @@ def pre_contact(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler
     matrix, the unconstrained velocity and the contact geometry.  With
     `ceil_sampler` the base-link spheres (the first c.n_ceil) also get
     contact rows against the overhead surface, with downward normals.
-    Returns a dict with f, u_free, phi, n, r, lever, tau_j, tau_org."""
+    Returns a dict with f, u_free, phi, n, r, lever, tau_j, tau_org.  The
+    plain twin of kernels/free_dynamics.py, which stage A runs on a card and
+    which gives its bits."""
     c = consts_of(mc)
     bp = tuple(sd.bp.unbind(0))
     ls = fk_vel(c, bp, tuple(sd.bq.unbind(0)), sd.q, sd.u)
@@ -670,10 +673,10 @@ CONTACT_APPLY = graphs.GraphCache()     # stage B's
 
 def stage_a(mc: ModelConsts, cfg, sd: SoAState, target, kp, kd, prm, sampler,
             ceil_sampler=None):
-    """The substep up to K1: pre_contact's results, with K1's inputs from
-    zero impulses under `problem` (contact_problem's tuple) and the state
-    read under `state`."""
-    p = pre_contact(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
+    """The substep up to K1: pre_contact's results (`free_dynamics`: the
+    kernel on a CUDA device), with K1's inputs from zero impulses under
+    `problem` (contact_problem's tuple) and the state read under `state`."""
+    p = free_dynamics(mc, cfg, sd, target, kp, kd, prm, sampler, ceil_sampler)
     p["problem"] = contact_problem(p["phi"], p["n"], p["r"], p["lever"], p["f"], p["u_free"],
                                    prm["friction"], cfg.dt, **contact_kwargs(cfg))
     p["state"] = sd

@@ -12,9 +12,12 @@ that consecutive rows differ by one piece:
   + 10 Jacobi sweeps             K1 with 10 sweeps
   soa.substep                    the engine's substep as the program runs it
                                  (5 sweeps, relax 0.7, lam0=None), on a card
-                                 replayed from its two CUDA graphs around K1:
-                                 adds the velocity clamps, limit_impulses and
-                                 the joint clamps
+                                 the free dynamics in one kernel
+                                 (kernels/free_dynamics.py) and the stages
+                                 replayed from their two CUDA graphs around
+                                 K1: adds the velocity clamps,
+                                 limit_impulses and the joint clamps; its
+                                 device ops fall below the partial rows
 
     python -m agility_tpu_torch.tools.bench_substep            # BENCH_ENVS=6144, one card
     BENCH_ENVS=8 BENCH_STEPS=2 python -m agility_tpu_torch.tools.bench_substep --device cpu

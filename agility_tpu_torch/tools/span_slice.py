@@ -28,7 +28,9 @@ bbc_play: `play_bbc.build`, trot at 1.0 m/s with bbc_final), warms up, then:
   4. the host µs of one empty span, on and off;
   5. how often the SoA substep's two CUDA graphs were captured and replayed
      over the whole run (soa.FREE_DYNAMICS, soa.CONTACT_APPLY: one capture
-     each, one replay a substep).
+     each, one replay a substep), and the free-dynamics kernel's calls
+     (kernels/free_dynamics.py: two a capture of the first graph, its
+     warm-up and the capture; none a replay).
 
 Prints one JSON line.
 """
@@ -47,6 +49,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from agility_tpu_torch import trace
+from agility_tpu_torch.kernels.free_dynamics import free_dynamics
 from agility_tpu_torch.physics import soa
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
@@ -508,6 +511,7 @@ def main(argv=None):
     res = dict(run=a.run, device=label if cuda else device_label(device),
                torch=torch.__version__, argv=run_argv, span_us=span_us(cuda),
                free_dynamics_graph=counts(soa.FREE_DYNAMICS),
+               free_dynamics_launches=free_dynamics.launches,
                contact_apply_graph=counts(soa.CONTACT_APPLY), **out)
     print(json.dumps(res))
 

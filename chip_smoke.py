@@ -16,8 +16,9 @@ out.
     python3 chip_smoke.py            # needs one CUDA card; exits nonzero without one
 
 Phases (any failure exits nonzero and prints no result line):
-  1. build   — nvcc builds csrc/{contact_lcp,terrain_window,scandots,window_dma}.cu for
-               sm_90a, one process per source, all at once (timed).
+  1. build   — nvcc builds csrc/{contact_lcp,terrain_window,scandots,window_dma,
+               free_dynamics}.cu for sm_90a, one process per source, all at
+               once (timed).
   2. K1      — the contact LCP kernel against contact_lcp_reference on one card,
                inputs built by the port's own SoA code from a real batch of
                states, at every path's shape: the BBC's (N = 4096, S = 24), the
@@ -36,6 +37,17 @@ Phases (any failure exits nonzero and prints no result line):
                the larger of its bytes (each input read once, each output
                written once) over 3.35 TB/s and its flops over 67 TFLOP/s,
                and its share of the bound is taken from the flushed time.
+  2a. free dynamics — the free-dynamics kernel (kernels/free_dynamics.py) against
+               plain soa.pre_contact at the BBC's shape (N = 4096, S = 24,
+               P = 24), the TSC's (N = 6144 on 64 courses, S' = 28 with the
+               ceiling rows, 64 envs in the roof, P = 32), the depth
+               student's (N = 256, the same world) and the vision_train
+               cell's (N = 4096, the same world), one substep in: every
+               output field bit for bit, two calls the same bits, each call
+               counted; timed as stage A's graph runs it (one launch replayed,
+               warm and L2-flushed), beside plain pre_contact eager and
+               replayed from one CUDA graph and the wrapper's host time; its
+               bound is its bytes.
   3. K2      — the terrain window against patch.extract_batch, exactly equal
                (floor, ceiling, origins), at both paths' shapes: the default
                64-course world (1320 x 1800, five surfaces), N = 6144 windows of
@@ -82,10 +94,13 @@ Phases (any failure exits nonzero and prints no result line):
   7. BBC slice — play_bbc at 4096 envs on the rough-terrain Go2LocomotionCfg with
                logs/bbc_r5/bbc_15k.msgpack for 40 control steps (trot, vx 1.0)
                and --gait_bands on the port's assets/gait_bands_real.json; K1
-               launches = substeps run, K2 launches = control steps + 1, the
-               free dynamics' CUDA graph (soa.FREE_DYNAMICS) and the one after K1
+               and the free-dynamics kernel launches = substeps run (that
+               kernel once more at the capture's eager warm-up), K2
+               launches = control steps + 1, the free dynamics' CUDA graph (soa.FREE_DYNAMICS) and the one after K1
                (soa.CONTACT_APPLY) each captured once and replayed once a
-               substep, every
+               substep, the free-dynamics kernel called twice a capture
+               (its warm-up and the capture) and, in the profiled steps,
+               run once a substep (by its name in the device ops), every
                state finite, median base height over the terrain in [0.15,
                0.45] m; the gait report (duty, stride_hz, diag_sync over the
                run, against the real-clip trot bands) printed with
@@ -250,7 +265,8 @@ Phases (any failure exits nonzero and prints no result line):
                the trainers' timer hooks, bench_vision (1024, peak memory);
                then bench_substep (6144: K1 once a substep in the four rows
                that solve and never in the others, device ops not falling down
-               the rows, the last row's equal to soa.substep's counted alone),
+               the partial rows, the last row's, soa.substep's with the
+               free-dynamics kernel, equal to soa.substep's counted alone),
                bench_engine and bench_env (4096); last, bench_tsc under
                torch.profiler, its chrome trace aggregated by tools/trace_agg
                (device kernels found).  Every row finite.
@@ -287,7 +303,8 @@ TSC_CHECKPOINT = os.path.join(ROOT, "logs", "agility", "r5", "model_12000.msgpac
 TSC_BBC = os.path.join(ROOT, "logs", "bbc_r5", "bbc_final.msgpack")
 GAIT_BANDS = os.path.join(ROOT, "agility_tpu_torch", "assets", "gait_bands_real.json")
 JAX_GAIT_REPORT = os.path.join(ROOT, "logs", "bbc_r5", "gait_report_28k.txt")
-KERNELS = ("contact_lcp", "terrain_window", "scandots", "window_dma")   # csrc/<name>.cu
+KERNELS = ("contact_lcp", "terrain_window", "scandots", "window_dma",
+           "free_dynamics")   # csrc/<name>.cu
 K1_RTOL = 1e-4
 NUM_ENVS = 4096     # the BBC path's width
 STEPS = 40          # control steps of the BBC slice phase (cut from 250, 120, then 60, for time)
@@ -570,6 +587,118 @@ def phase_k1(cases):
             label = f"{path} {mode}"
             rows[label] = k1_check(label, k1_inputs(env, s, params, warm), iters, S,
                                    env.grid.ceiling is not None, warm)
+    return rows
+
+
+def _fd_mismatch(got, want):
+    """{field: envs in which the free-dynamics kernel's output differs from
+    pre_contact's in any bit}, fields named by their leaves' order."""
+    from agility_tpu_torch.physics.graphs import _tensors
+
+    out = {}
+    for k in sorted(want):
+        for i, (a, b) in enumerate(zip(_tensors(got[k], []), _tensors(want[k], []), strict=True)):
+            out[f"{k}.{i}"] = int((a != b).reshape(-1, a.shape[-1]).any(0).sum())
+    return out
+
+
+def _window_cells(smp, x, y):
+    """Distinct cells of the window that the 4-tap samples at (x, y) (rows,
+    N) read, over every env (soa.patch_sample_hn's clamp)."""
+    P = smp.values_T.shape[0]
+    gx = torch.clamp((x - smp.origin[0]) / smp.hscale - smp.x0[None].to(x.dtype), 0.0, P - 1.001)
+    gy = torch.clamp((y - smp.origin[1]) / smp.hscale - smp.y0[None].to(x.dtype), 0.0, P - 1.001)
+    i, j = gx.floor().long(), gy.floor().long()
+    n = torch.arange(x.shape[1], device=x.device)[None]
+    keys = torch.stack([(n * P + i + a) * P + j + b for a in (0, 1) for b in (0, 1)])
+    return int(torch.unique(keys).numel())
+
+
+def _graphed(fn):
+    """fn captured into one CUDA graph (a warm-up on the capture stream
+    first): its replay."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        fn()
+    return g
+
+
+def phase_free_dynamics(cases):
+    """The free-dynamics kernel (kernels/free_dynamics.py) against plain
+    soa.pre_contact on each (path, env, states, params) case, one substep
+    in (soa.substep), as stage A calls it: every output field bit for bit
+    (tests/test_torch_cuda.py says why), two calls the same bits, each call
+    counted once.  Timed: the kernel warm and flushed, plain
+    pre_contact eager and replayed from one CUDA graph; its bound is its
+    bytes (inputs read once, the window cells its taps read, the outputs
+    written once; its few thousand flops an env take under 1 us at the
+    float32 peak)."""
+    from agility_tpu_torch.kernels import free_dynamics as kfd
+    from agility_tpu_torch.physics import engine as eng
+    from agility_tpu_torch.physics import soa
+    from agility_tpu_torch.physics.graphs import _tensors
+
+    rows = {}
+    for path, env, s, params in cases:
+        mc, ecfg = env.mc, env.engine_cfg
+        ctl = eng.Control(target=mc.default_dof_pos.expand(env.num_envs, 12), kp=env.kp,
+                          kd=env.kd)
+        sd, args, _ = soa.batch_inputs(ecfg, env.grid, s, ctl, params)
+        sd = soa.substep(mc, ecfg, sd, *args)[0]
+        sd = soa.SoAState(*(t.clone() for t in sd))
+        call = lambda: kfd.free_dynamics(mc, ecfg, sd, *args)
+        plain = lambda: soa.pre_contact(mc, ecfg, sd, *args)
+        before = kfd.free_dynamics.launches
+        got, again, want = call(), call(), plain()
+        torch.cuda.synchronize()
+        calls = kfd.free_dynamics.launches - before
+        same = all(torch.equal(a, b) for a, b in zip(_tensors(got, []), _tensors(again, [])))
+        differ = _fd_mismatch(got, want)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(_tensors(got, []), _tensors(want, [])))
+        S, (target, kp, kd, prm, smp, csmp) = soa.consts_of(mc).S, args
+        rows_all = got["phi"].shape[0]
+        cen = [want["r"][k] + sd.bp[k][None] for k in range(3)]
+        cells = _window_cells(smp, cen[0][:S], cen[1][:S])
+        if csmp is not None:
+            k = rows_all - S
+            cells += _window_cells(csmp, cen[0][:k], cen[1][:k])
+        inputs = nbytes(*sd, target, kp, kd, prm["kp_scale"], prm["kd_scale"],
+                        prm["added_mass"], *prm["com_shift"], smp.x0, smp.y0)
+        moved = inputs + 4 * cells + nbytes(*_tensors(got, []))
+        # the kernel timed as stage A's graph runs it, one launch replayed
+        # (the wrapper's Python, host_ms, runs at a capture, never at a replay)
+        graph = _graphed(call)
+        t = dict(timed(graph.replay, plain, moved), host_ms=host_ms(call))
+        graph = _graphed(plain)
+        t["graphed_plain_ms"] = cuda_ms(graph.replay)
+        del graph
+        active = int((want["phi"] < 0).sum())
+        ceil_active = int((want["phi"][S:] < 0).sum())
+        label = f"{path}"
+        print(f"free dynamics {label}: N={sd.bp.shape[1]} S'={rows_all} P={smp.values_T.shape[0]}; "
+              f"{calls} counted for 2 calls; active contacts {active} (ceiling rows "
+              f"{ceil_active}); envs differing from pre_contact in any bit "
+              f"{sum(differ.values())} over {len(differ)} fields, max abs err {err:.3e}; two "
+              f"calls bit-identical {same}; "
+              f"{cells} window cells; {fmt_times(t)}; the wrapper's host {t['host_ms']:.4f} ms; "
+              f"plain pre_contact replayed from one CUDA graph {t['graphed_plain_ms']:.4f} ms",
+              flush=True)
+        if calls != 2:
+            raise SystemExit(f"free dynamics {label}: {calls} counted for two calls")
+        if not same:
+            raise SystemExit(f"free dynamics {label}: two calls on the same inputs differ")
+        if any(differ.values()):
+            raise SystemExit(f"free dynamics {label}: kernel differs from pre_contact: "
+                             + json.dumps({k: v for k, v in differ.items() if v}))
+        if active == 0 or (csmp is not None and ceil_active == 0):
+            raise SystemExit(f"free dynamics {label}: inputs exercise no contact")
+        rows[label] = dict(max_abs_err=err, **t)
     return rows
 
 
@@ -1006,19 +1135,24 @@ def phase_layer_tools(root, T=LAYER_T):
     out["bench_substep"], out["substep_pieces"] = rows, pieces
     finite("bench_substep", rows)
     k1 = [r["launches"]["contact_lcp"] for r in rows]
+    fd = [r["launches"]["free_dynamics"] for r in rows]
     ops = [r["ops"] for r in rows]
     mc, sd0, inputs = bench_substep.setup(TSC_ENVS, "cuda")
     substep = bench_substep.steps(mc, inputs)["soa.substep"]
     with torch.no_grad():
         substep(sd0)        # the first call moves the model's SoA constants to the card
         alone = timing.device_ops(lambda: substep(sd0), "cuda", bench_substep.READS)
-    print(f"layer tools bench_substep: K1 a substep {k1}; device ops {ops}, soa.substep alone "
+    print(f"layer tools bench_substep: K1 a substep {k1}, the free-dynamics kernel {fd}; "
+          f"device ops {ops}, soa.substep alone "
           f"{alone}; pieces {json.dumps(pieces)}", flush=True)
-    if k1 != [0.0] * 3 + [1.0] * 4:
-        raise SystemExit("layer tools bench_substep: K1 launched in the wrong rows")
-    if any(b < a for a, b in zip(ops, ops[1:])) or ops[-1] != alone:
-        raise SystemExit("layer tools bench_substep: device ops fall down the rows, or the "
-                         "last row's are not soa.substep's")
+    if k1 != [0.0] * 3 + [1.0] * 4 or fd != [0.0] * 6 + [1.0]:
+        raise SystemExit("layer tools bench_substep: K1 or the free-dynamics kernel launched in "
+                         "the wrong rows")
+    # the partial rows add pieces of plain torch; the last, soa.substep,
+    # runs the free dynamics in one kernel and replays its graphs
+    if any(b < a for a, b in zip(ops[:-1], ops[1:-1])) or ops[-1] != alone:
+        raise SystemExit("layer tools bench_substep: device ops fall down the partial rows, "
+                         "or the last row's are not soa.substep's")
     out["bench_engine"] = bench_engine.bench("cuda", NUM_ENVS, T=T, rounds=1)
     finite("bench_engine", out["bench_engine"])
     out["bench_env"] = [bench_env.bench("cuda", NUM_ENVS, T=T, rounds=1)]
@@ -1082,7 +1216,7 @@ def phase_bench(num_envs, tsc_envs, iters):
         out, dt = run()
         launches[path] = _counts()
         rate = T * (tsc_envs if tsc else num_envs) / dt
-        want = _want(contact_lcp=4 * steps, terrain_window=steps, scandots=steps if tsc else 0)
+        want = _soa_want(4 * steps, terrain_window=steps, scandots=steps if tsc else 0)
         print(f"bench {path}: {json.dumps(out)}; {dt:.3f} s a timed iteration; launches "
               f"{launches[path]} (want {want}, {steps} control steps)", flush=True)
         keys = {"metric", "value", "unit"}
@@ -1124,7 +1258,8 @@ def phase_env_ablation(num_envs, tsc_envs, T):
         if bad:
             raise SystemExit(f"env ablation {name}: non-finite rewards under {bad}")
         full = by["full step"]["launches"]
-        want = _want(contact_lcp=4, terrain_window=1, scandots=1 if name == "tsc" else 0)
+        want = _want(contact_lcp=4, free_dynamics=4, terrain_window=1,
+                     scandots=1 if name == "tsc" else 0)
         if full != want:
             raise SystemExit(f"env ablation {name}: full step launches {full} a step, want {want}")
         if name == "tsc":
@@ -1237,20 +1372,22 @@ def phase_per_env_parity(num_envs=64, courses=8, under_roof=8):
     acts = build_policy(cfg, device="cuda")(s.obs_buf)
     base, dec = gpu.engine_cfg, gpu.engine_cfg.decimation
     cases = [(label, gpu, cpu, s, acts, dataclasses.replace(base, **kw), False,
-              _want(contact_lcp=k1 * dec, terrain_window=k2, scandots=0))
+              dict(contact_lcp=k1 * dec, terrain_window=k2, scandots=0))
              for label, kw, k1, k2 in PER_ENV_VARIANTS]
     tg, policy = tsc_env(num_envs, courses)
     tc = type(tg)(tg.cfg, "cpu", seed=0)
     ts = press_into_roof(tg, tg.init_state(), under_roof)
     ts, nc = tg.set_commands(ts, policy.act(ts.obs_buf))
     tacts = policy.bbc_act(ts.obs_bbc_buf, nc)
-    tsc_want = _want(contact_lcp=dec, terrain_window=1, scandots=1)
+    tsc_want = dict(contact_lcp=dec, terrain_window=1, scandots=1)
     cases += [("tsc_pgs_fast", tg, tc, ts, tacts,
                dataclasses.replace(tg.engine_cfg, solver="pgs"), False, tsc_want),
               ("tsc_pgs_contact_frames_soa", tg, tc, ts, tacts,
                dataclasses.replace(tg.engine_cfg, solver="pgs", fast=False), True, tsc_want)]
     for label, g, c, st, a, ecfg, soa_path, want in cases:
         errs, launches, same_resets = _step_errors(g, c, st, a, ecfg)
+        # the free-dynamics kernel on the SoA path alone
+        want = _soa_want(want.pop("contact_lcp"), **want) if soa_path else _want(**want)
         n_ceil = (_per_env_ceiling_contacts(c, _to(st, "cpu"), ecfg)
                   if label == "tsc_pgs_fast" else None)
         print(f"per-env parity {label}: {num_envs} envs, one env step card vs CPU, SoA path "
@@ -1295,10 +1432,15 @@ def _active_ceiling_contacts(env, s):
     return int((p["phi"][soa.consts_of(env.mc).S:] < 0).sum())
 
 
+_CAPTURES = [0]     # stage A's graph captures at the last _counts_zero
+
+
 def _counts_zero():
     from agility_tpu_torch.kernels import zero_launch_counts
+    from agility_tpu_torch.physics import soa
 
     zero_launch_counts()
+    _CAPTURES[0] = soa.FREE_DYNAMICS.captures
 
 
 def _counts():
@@ -1312,8 +1454,20 @@ def _want(**launches):
     return dict(dict.fromkeys(_counts(), 0), **launches)
 
 
+def _soa_want(k1, **launches):
+    """_want of a run on the SoA substep since _counts_zero that launched K1
+    k1 times: the free-dynamics kernel once a substep too (stage A's graph
+    replayed before K1), and once more at each capture of that graph
+    (GraphCache's eager warm-up)."""
+    from agility_tpu_torch.physics import soa
+
+    return _want(contact_lcp=k1, free_dynamics=k1 + soa.FREE_DYNAMICS.captures - _CAPTURES[0],
+                 **launches)
+
+
 def phase_slice(num_envs, steps):
     from agility_tpu_torch.cli import play_bbc
+    from agility_tpu_torch.kernels import free_dynamics as kfd
     from agility_tpu_torch.physics import heightfield as hf
 
     from agility_tpu_torch.physics import soa
@@ -1326,6 +1480,7 @@ def phase_slice(num_envs, steps):
     before = {k: (g.captures, g.replays) for k, g in caches.items()}
     res = play_bbc.run(args)
     launches = _counts()
+    fd_calls = kfd.free_dynamics.launches
     graph_counts = {k: dict(captures=g.captures - before[k][0], replays=g.replays - before[k][1])
                     for k, g in caches.items()}
     gait_reading(res, num_envs, steps)
@@ -1338,24 +1493,32 @@ def phase_slice(num_envs, steps):
     root_h = pos[:, 2] - hf.sample_height(res["env"].grid, pos[:, 0], pos[:, 1])
     med_h, med_z = float(root_h.median()), float(pos[:, 2].median())
     print(f"BBC slice: {num_envs} envs x {steps} control steps, launches {launches} "
-          f"(substeps run {res['substeps']}), graphs {graph_counts}, "
+          f"(substeps run {res['substeps']}), graphs {graph_counts}, free-dynamics kernel "
+          f"calls {fd_calls} (the capture's warm-up and capture), "
           f"all states finite {finite}, "
           f"median base height over terrain {med_h:.4f} m (world z {med_z:.4f} m), "
           f"{res['env_steps_per_s']:.1f} env-steps/s on {torch.cuda.get_device_name(0)}",
           flush=True)
-    if launches["contact_lcp"] != res["substeps"]:
-        raise SystemExit("BBC slice: the K1 launch count differs from the substeps run")
-    if launches["terrain_window"] != steps + 1:
-        raise SystemExit("BBC slice: the K2 launch count differs from the control steps run")
+    want = _soa_want(res["substeps"], terrain_window=steps + 1)
+    if launches != want:
+        raise SystemExit(f"BBC slice: launches {launches}, want {want} (K1 and the free-dynamics "
+                         "kernel once a substep, K2 once a control step and at the reset)")
     for k, counts in graph_counts.items():
         if counts != dict(captures=1, replays=res["substeps"]):
             raise SystemExit(f"BBC slice: the {k} graph was not captured once and replayed "
                              "once a substep")
+    if fd_calls != 2 * graph_counts["free_dynamics"]["captures"]:
+        raise SystemExit("BBC slice: the free-dynamics kernel was called other than twice a "
+                         "capture of stage A's graph")
     if not finite:
         raise SystemExit("BBC slice: non-finite state")
     if not 0.15 <= med_h <= 0.45:
         raise SystemExit("BBC slice: median base height over terrain outside [0.15, 0.45] m")
-    return launches, dict(play_profile("BBC slice", res, num_envs), rate=res["env_steps_per_s"])
+    prof = play_profile("BBC slice", res, num_envs)
+    if prof["free_dynamics_kernels"] != res["env"].engine_cfg.decimation:
+        raise SystemExit("BBC slice: the profiled steps ran the free-dynamics kernel other than "
+                         "once a substep")
+    return launches, dict(prof, rate=res["env_steps_per_s"])
 
 
 def step_profile(label, step, s, step_ms, steps=2):
@@ -1375,10 +1538,12 @@ def step_profile(label, step, s, step_ms, steps=2):
     dev = [e for e in prof.profiler.kineto_results.events()
            if e.device_type() == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.end_ns() - e.start_ns() for e in dev) / 1e6 / steps
-    r = dict(ops=len(dev) / steps, busy_ms=busy_ms, step_ms=step_ms, busy=busy_ms / step_ms)
-    print(f"{label} profile: {r['ops']:.0f} device ops per control step, device busy "
-          f"{busy_ms:.2f} ms per step, {100 * r['busy']:.1f}% of the unprofiled "
-          f"{step_ms:.1f} ms step", flush=True)
+    fd = sum("free_dynamics_kernel" in e.name() for e in dev) / steps
+    r = dict(ops=len(dev) / steps, busy_ms=busy_ms, step_ms=step_ms, busy=busy_ms / step_ms,
+             free_dynamics_kernels=fd)
+    print(f"{label} profile: {r['ops']:.0f} device ops per control step ({fd:g} of them the "
+          f"free-dynamics kernel), device busy {busy_ms:.2f} ms per step, "
+          f"{100 * r['busy']:.1f}% of the unprofiled {step_ms:.1f} ms step", flush=True)
     return r
 
 
@@ -1560,8 +1725,8 @@ def phase_tsc_slice(num_envs, steps, root):
     pos = s.sim.base_pos
     floor = hf.sample_height(env.grid, pos[:, 0], pos[:, 1], env._weights(s))
     med_h = float((pos[:, 2] - floor).median())
-    want = _want(contact_lcp=env.engine_cfg.decimation * res["steps"],
-                terrain_window=res["steps"], scandots=res["steps"])
+    want = _soa_want(env.engine_cfg.decimation * res["steps"], terrain_window=res["steps"],
+                     scandots=res["steps"])
     print(f"TSC slice: {num_envs} envs x 64 courses x {steps} control steps, launches "
           f"{launches} (want {want}), all states finite {finite}, median base height over "
           f"the folded floor {med_h:.4f} m; episodes {res['episodes']}, course completions "
@@ -1882,8 +2047,8 @@ def phase_train(num_envs, iters):
                    for a, b in zip(mine.state_dict().values(), back.state_dict().values()))
         print(f"BBC train: slim checkpoint {os.path.basename(path)} read back by play_bbc's "
               f"loader, tensors equal {same}", flush=True)
-        want = _want(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
-                    terrain_window=T * iters, scandots=0)
+        want = _soa_want(runner.env.engine_cfg.decimation * T * iters,
+                         terrain_window=T * iters, scandots=0)
         if launches != want:
             raise SystemExit(f"BBC train: launches {launches}, want {want}")
         if not finite:
@@ -1972,7 +2137,7 @@ def phase_bbc_mocap(num_envs, root):
           f"the files' {counts}; expert labels per mode {modes}; metrics {json.dumps(metrics)}; "
           f"checkpoint {os.path.basename(path)} read back equal {back}; on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    want = _want(contact_lcp=runner.env.engine_cfg.decimation * T, terrain_window=T, scandots=0)
+    want = _soa_want(runner.env.engine_cfg.decimation * T, terrain_window=T, scandots=0)
     if launches != want:
         raise SystemExit(f"BBC mocap: launches {launches}, want {want}")
     if not (finite and counts and min(modes) > 0 and back):
@@ -2065,8 +2230,8 @@ def phase_tsc_train(num_envs, iters):
             ("actor_critic", ts.ac), ("estimator", ts.est)) for k, v in mod.state_dict().items())
         print(f"TSC train: slim checkpoint {os.path.basename(path)} read back by "
               f"params_from_jax_tsc, tensors equal {same}", flush=True)
-        want = _want(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
-                    terrain_window=T * iters, scandots=T * iters)
+        want = _soa_want(runner.env.engine_cfg.decimation * T * iters,
+                         terrain_window=T * iters, scandots=T * iters)
         if launches != want:
             raise SystemExit(f"TSC train: launches {launches}, want {want}")
         if not finite:
@@ -2327,8 +2492,8 @@ def phase_train_32k(iters=1):
         print(f"{label}: slim checkpoint {os.path.basename(path)} read back equal {same}",
               flush=True)
         _state_reads_back(runner, label)
-        want = _want(contact_lcp=env.engine_cfg.decimation * T * iters,
-                    terrain_window=T * iters, scandots=0)
+        want = _soa_want(env.engine_cfg.decimation * T * iters,
+                         terrain_window=T * iters, scandots=0)
         if launches != want:
             raise SystemExit(f"{label}: launches {launches}, want {want}")
         if not finite:
@@ -2394,8 +2559,8 @@ def phase_tsc_train_32k(iters=1):
         print(f"{label}: slim checkpoint {os.path.basename(path)} read back equal {same}",
               flush=True)
         _state_reads_back(runner, label)
-        want = _want(contact_lcp=env.engine_cfg.decimation * T * iters,
-                    terrain_window=T * iters, scandots=T * iters)
+        want = _soa_want(env.engine_cfg.decimation * T * iters,
+                         terrain_window=T * iters, scandots=T * iters)
         if launches != want:
             raise SystemExit(f"{label}: launches {launches}, want {want}")
         if not finite:
@@ -2582,8 +2747,8 @@ def phase_vision_train(root, iters):
     print(f"{label}: {VISION_ENVS} envs x 64 courses, it {ts.it}; metrics {json.dumps(m)}; "
           f"checkpoint {os.path.basename(path)} read back by params_from_jax_vision, tensors "
           f"equal {same}; peak {peak / 2**30:.3f} GiB", flush=True)
-    want = _want(contact_lcp=runner.env.engine_cfg.decimation * T * iters,
-                terrain_window=T * iters, scandots=T * iters)
+    want = _soa_want(runner.env.engine_cfg.decimation * T * iters,
+                     terrain_window=T * iters, scandots=T * iters)
     if launches != want:
         raise SystemExit(f"{label}: launches {launches}, want {want}")
     if not finite:
@@ -2617,8 +2782,8 @@ def phase_vision_play(num_envs, steps, student):
     pos = s.sim.base_pos
     floor = hf.sample_height(env.grid, pos[:, 0], pos[:, 1], env._weights(s))
     med_h = float((pos[:, 2] - floor).median())
-    want = _want(contact_lcp=env.engine_cfg.decimation * res["steps"],
-                terrain_window=res["steps"], scandots=res["steps"])
+    want = _soa_want(env.engine_cfg.decimation * res["steps"], terrain_window=res["steps"],
+                     scandots=res["steps"])
     print(f"TSC vision play: {num_envs} envs x 64 courses x {steps} control steps (camera every "
           f"{res['policy'].interval}), launches {launches} (want {want}), all states finite "
           f"{finite}, median base height over the folded floor {med_h:.4f} m; episodes "
@@ -2697,6 +2862,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from agility_tpu_torch.kernels import build
     from agility_tpu_torch.kernels import contact_lcp as k1
+    from agility_tpu_torch.kernels import free_dynamics as kfd
     from agility_tpu_torch.kernels import scandots as k3
     from agility_tpu_torch.kernels import terrain_window as k2
     from agility_tpu_torch.kernels import window_dma as wd
@@ -2719,12 +2885,16 @@ def main():
     print(smi.stdout.strip(), flush=True)
 
     rows, seconds, t = {}, {}, time.perf_counter()
-    bbc = bbc_case()
+    bbc, tsc, vision = bbc_case(), tsc_case(), tsc_case(VISION_ENVS)
     tmp_root = _log_root()
     try:
         for name, phase in (
-                ("K1", lambda: phase_k1([("bbc", *bbc), ("tsc", *tsc_case()),
-                                         ("tsc_vision", *tsc_case(VISION_ENVS))])),
+                ("K1", lambda: phase_k1([("bbc", *bbc), ("tsc", *tsc), ("tsc_vision", *vision)])),
+                # the depth student's env width, and the vision_train cell's (N 4096 on 64
+                # courses): cuBLAS, whose sums the kernel copies, picks its algorithm by shape
+                ("free dynamics", lambda: phase_free_dynamics([
+                    ("bbc", *bbc), ("tsc", *tsc), ("tsc_vision", *vision),
+                    ("tsc_vision_train", *tsc_case(NUM_ENVS))])),
                 ("K2", lambda: phase_k2(k2_cases(bbc))),
                 ("K3", lambda: phase_k3([("tsc", k3_case(TSC_ENVS)),
                                          ("tsc_vision", k3_case(VISION_ENVS))])),
@@ -2785,8 +2955,9 @@ def main():
                            if shape.startswith(name)}
     kernels = []
     # each kernel's headline numbers are those of its first shape: K1 at the
-    # BBC's (warm, 5 sweeps), K2 and K3 at the TSC's, D and E at float32 K 5 P 32;
-    # no single PyTorch call computes K1, K2 or K3 (library_ms null)
+    # BBC's (warm, 5 sweeps), K2 and K3 at the TSC's, D and E at float32 K 5 P 32,
+    # the free-dynamics kernel at the BBC's; no single PyTorch call computes
+    # K1, K2, K3 or the free dynamics (library_ms null)
     for name, source, replaces, r, head in (
             ("contact_lcp", k1.SOURCE, k1.TPU_KERNEL, rows["K1"], "bbc warm"),
             ("terrain_window", k2.SOURCE, k2.TPU_KERNEL, rows["K2"], "tsc"),
@@ -2794,7 +2965,8 @@ def main():
             ("per_env_windows", wd.SOURCE, wd.TPU_KERNEL_D, window("per_env_windows"),
              "per_env_windows f32 K5 P32"),
             ("band_windows", wd.SOURCE, wd.TPU_KERNEL_E, window("band_windows"),
-             "band_windows f32 K5 P32")):
+             "band_windows f32 K5 P32"),
+            ("free_dynamics", kfd.SOURCE, None, rows["free dynamics"], "bbc")):
         by_path = {p: n[name] for p, n in paths.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -2802,7 +2974,7 @@ def main():
             max_abs_err=max(v["max_abs_err"] for v in r.values()),
             **{k: r[head].get(k) for k in keys},
             by_shape={shape: {k: v[k] for k in keys + ("sectors", "routes", "lead_ms", "host_ms",
-                                                       "launch", "off_grid")
+                                                       "launch", "off_grid", "graphed_plain_ms")
                               if k in v} for shape, v in r.items()}))
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()}),
           flush=True)

@@ -143,7 +143,7 @@ def test_ablate_leaves_the_env_as_a_fresh_one(case):
     for r in rows:
         assert r["finite"] and r["ms"] > 0 and r["ops"] is None, r
         assert r["launches"] == dict(contact_lcp=0, terrain_window=0, scandots=0, per_env_windows=0,
-                                    band_windows=0)
+                                    band_windows=0, free_dynamics=0)
     assert env.cfg is cfg
     assert not {"_reset_where", "_compute_observations", "_compute_reward",
                 "_center_root_height", "_measure_heights"} & set(vars(env))

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from agility_tpu_torch.kernels import contact_lcp as k1
+from agility_tpu_torch.kernels import launch_counts
+from agility_tpu_torch.kernels import free_dynamics as kfd
 from agility_tpu_torch.kernels import scandots as k3
 from agility_tpu_torch.kernels import terrain_window as k2
 from agility_tpu_torch.physics import engine as teng
@@ -124,33 +126,72 @@ def _tensors(x):
     return []
 
 
-def _pre_solve(mc, cfg, sd, target, kp, kd, p, smp, csmp):
-    """Stage A called directly: pre_contact and K1's inputs."""
-    want = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
-    want["problem"] = tsoa.contact_problem(
-        want["phi"], want["n"], want["r"], want["lever"], want["f"], want["u_free"],
-        p["friction"], cfg.dt, **tsoa.contact_kwargs(cfg))
-    want["state"] = sd
-    return want
-
-
 def _graph_counts():
     return [(g.captures, g.replays) for g in (tsoa.FREE_DYNAMICS, tsoa.CONTACT_APPLY)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n, P, ceiling, params", [(4096, 24, False, True),
+                                                   (4096, 24, False, False),
+                                                   (6144, 32, True, True),
+                                                   (4096, 32, True, True)])
+def test_free_dynamics_kernel_matches_pre_contact(card, n, P, ceiling, params):
+    """The free-dynamics kernel against plain pre_contact on the same CUDA
+    inputs, every output field bit for bit: the BBC's shape (N 4096, S 24,
+    P 24) with and without added_mass and com_shift, the TSC's with the
+    ceiling rows (N 6144, S' 28, P 32) and the depth student's TSC env (N
+    4096, S' 28, P 32: cuBLAS picks its sums by shape); 3 control steps of new states, each
+    carried a substep.  Bit for bit because the kernel rounds each product
+    and sum as PyTorch's elementwise kernels do (no FMA contraction) and
+    sums the window's cells as cuBLAS does: a rounding gap would move a
+    sphere across a window cell's edge now and then, whose normal jumps
+    there (measured on an H100: equal at both shapes).  Two launches give
+    the same bits; one launch a call."""
+    mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(patch_size=P), _graph_grid(ceiling)
+    for step in range(3):
+        s, ctl, prm = _graph_batch(n, seed=10 + step)
+        sd, (target, kp, kd, p, smp, csmp), _ = tsoa.batch_inputs(cfg, grid, s, ctl, prm)
+        if not params:
+            p = dict(kp_scale=p["kp_scale"], kd_scale=p["kd_scale"], friction=p["friction"])
+        before = kfd.free_dynamics.launches
+        got = kfd.free_dynamics(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+        again = kfd.free_dynamics(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+        want = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+        torch.cuda.synchronize()
+        assert kfd.free_dynamics.launches == before + 2
+        assert got["phi"].shape == (28 if ceiling else 24, n)
+        assert got["f"]["legs"] == want["f"]["legs"]
+        assert sorted(got) == sorted(want)
+        for k in sorted(want):
+            for a, b in zip(_tensors(got[k]), _tensors(want[k]), strict=True):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                assert torch.equal(a, b), (k, int((a != b).reshape(-1, n).any(0).sum()))
+        for a, b in zip(_tensors(got), _tensors(again), strict=True):
+            assert torch.equal(a, b)
+        assert float((want["phi"] < 0).float().mean()) > 0.01      # contacts present
+        if ceiling:
+            assert bool((want["phi"][24:] < 0).any())                # ceiling rows active
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n, P, ceiling", [(4096, 24, False), (6144, 32, True)])
 def test_free_dynamics_graph_is_bit_equal(card, n, P, ceiling):
-    """Stage A's graph (free dynamics and K1's inputs, FREE_DYNAMICS)
-    replayed against pre_contact and contact_problem called directly on the
-    same inputs, bit for bit, at the BBC's shape (N 4096, S 24, P 24) and
-    the TSC's with the ceiling rows (N 6144, S 28, P 32): 3 control steps
-    of 4 substeps, each step with new state, params and K2 window tensors
-    (a stale pointer would show), the state carried by K1, the apply and
-    the integration, called directly.  One capture, 12 replays."""
+    """Stage A's graph (the free-dynamics kernel and K1's inputs,
+    FREE_DYNAMICS) replayed against soa.stage_a called directly on the same
+    inputs (the same kernel, eager), bit for bit, at the BBC's shape (N
+    4096, S 24, P 24) and the TSC's with the ceiling rows (N 6144, S 28, P
+    32): 3 control steps of 4 substeps, each step with new state, params
+    and K2 window tensors (a stale pointer would show), the state carried
+    by K1, the apply and the integration, called directly.  One capture, 12
+    replays; the wrapper called twice by the capture (its warm-up and the
+    capture) and once a direct call, never by a replay; the kernel launched
+    on the device at the warm-up, each direct call and each replay
+    (kernels.launch_counts)."""
     mc, cfg, grid = model_consts("cuda"), teng.EngineConfig(patch_size=P), _graph_grid(ceiling)
     cache = tsoa.FREE_DYNAMICS
     before = cache.captures, cache.replays
+    launches, eager = kfd.free_dynamics.launches, kfd.free_dynamics.eager
+    on_card = launch_counts()["free_dynamics"]
     for step in range(3):
         s, ctl, prm = _graph_batch(n, seed=step)
         sd, (target, kp, kd, p, smp, csmp), _ = tsoa.batch_inputs(cfg, grid, s, ctl, prm)
@@ -159,7 +200,7 @@ def test_free_dynamics_graph_is_bit_equal(card, n, P, ceiling):
             inputs, samplers = (sd, target, kp, kd, p), (smp, csmp)
             got = cache(graphs.key((inputs, samplers), id(mc), cfg), mc,
                         lambda a, h: tsoa.stage_a(mc, cfg, *a, *h), inputs, samplers)
-            want = _pre_solve(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+            want = tsoa.stage_a(mc, cfg, sd, target, kp, kd, p, smp, csmp)
             assert want["phi"].shape[0] == (28 if ceiling else 24)
             for a, b in zip(_tensors(got), _tensors(want), strict=True):
                 assert torch.equal(a, b)
@@ -170,6 +211,9 @@ def test_free_dynamics_graph_is_bit_equal(card, n, P, ceiling):
             sd = tsoa.integrate(mc.soa, cfg, sd, want["f"], u_new)
     torch.cuda.synchronize()
     assert (cache.captures - before[0], cache.replays - before[1]) == (1, 12)
+    assert kfd.free_dynamics.launches - launches == 2 + 12
+    assert kfd.free_dynamics.eager - eager == 1 + 12
+    assert launch_counts()["free_dynamics"] - on_card == 1 + 12 + 12
 
 
 @pytest.mark.cuda
@@ -177,8 +221,8 @@ def test_free_dynamics_graph_is_bit_equal(card, n, P, ceiling):
 @pytest.mark.parametrize("n, P, ceiling", [(4096, 24, False), (6144, 32, True)])
 def test_substep_graphs_are_bit_equal(card, monkeypatch, n, P, ceiling, warm):
     """The substep on the card (stage A's graph, K1 eager, stage B's graph)
-    against its stage functions called directly, pre_contact ->
-    jacobi_solve -> integrate, on the same inputs, bit for bit: state, tau,
+    against its stage functions called directly, stage_a (the free-dynamics
+    kernel, eager) -> jacobi_solve -> integrate, on the same inputs, bit for bit: state, tau,
     tau_org, force and lam, at the BBC's shape and the TSC's with the
     ceiling rows, over 3 control steps of 4 substeps, each step with new state, params and K2 window tensors, the
     state carried by the graphs' outputs, and with `warm` each substep after
@@ -204,7 +248,7 @@ def test_substep_graphs_are_bit_equal(card, monkeypatch, n, P, ceiling, warm):
         lam0 = None
         for _ in range(cfg.decimation):
             # the direct calls first: the substep overwrites sd, the previous one's output
-            e = tsoa.pre_contact(mc, cfg, sd, target, kp, kd, p, smp, csmp)
+            e = tsoa.stage_a(mc, cfg, sd, target, kp, kd, p, smp, csmp)
             u_new, force, lam = tsoa.jacobi_solve(
                 e["phi"], e["n"], e["r"], e["lever"], e["f"], e["u_free"], p["friction"],
                 cfg.dt, iters=cfg.jacobi_iters, relax=cfg.jacobi_relax, lam0=lam0,
@@ -561,7 +605,8 @@ def test_ablation_variant_on_card(card):
     begin = bench_env_ablate.start(env)
     row = bench_env_ablate.bench(env, label, begin, 2, 1, **patches)
     assert row["finite"] and row["launches"] == dict(contact_lcp=4, terrain_window=1, scandots=0,
-                                                    per_env_windows=0, band_windows=0)
+                                                    per_env_windows=0, band_windows=0,
+                                                    free_dynamics=4)
     assert bench_env_ablate.device_ops(env, begin, **patches) > 1000
 
 
